@@ -1,0 +1,383 @@
+"""KKT factorization strategies, batched over a leading axis.
+
+Counterpart of kvxopt_tpu/kkt.py.  A strategy is
+
+    make_kkt_solver(name, dims, G, A, P=None, mnl=0, reg=0.0)
+        -> factor(W, H=None, Df=None)
+        -> solve(bx, by, bz) -> (ux, uy, uz)
+
+solving the scaled Newton system of the JAX package for every lane of a
+batch at once: G is (B, m, n), P (B, n, n), the right-hand sides (B, .).
+
+Ported: the condensed normal-equations strategy `chol2` and its
+mixed-precision forms `chol2_mixed` / `chol2_mixed_nofb` (f32 factor on
+kernel K1, f64 refinement).  The other strategies and equality
+constraints (p > 0) raise NotImplementedError (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+from functools import partial
+
+import torch
+
+from . import cones, config
+from .cones import ConeDims
+from .ops.chol_ls import chol_solve_ls_ref, cholesky_nan
+from .ops.ipm_chol import chol_factor, chol_solve, tri_lower_solve
+from .ops.ozaki import OzakiOperator, ata
+
+STRATEGIES = ("ldl", "ldl2", "chol", "chol2", "qr", "chol2_mixed",
+              "chol2_mixed_nofb")
+PORTED = ("chol2", "chol2_mixed", "chol2_mixed_nofb")
+
+
+def _mv(M, x):
+    """Batched M @ x for M (B, r, c), x (B, c)."""
+    return torch.matmul(M, x.unsqueeze(-1)).squeeze(-1)
+
+
+def _tmv(M, x):
+    """Batched M' @ x for M (B, r, c), x (B, r)."""
+    return torch.matmul(x.unsqueeze(-2), M).squeeze(-2)
+
+
+def _eye_like(K):
+    return torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+
+
+def make_kkt_solver(name, dims: ConeDims, G, A=None, P=None, mnl: int = 0,
+                    reg: float = 0.0, ozaki=None, facref=None):
+    """ozaki / facref: None follows config.ozaki_refine /
+    config.factor_refine; True/False force; facref="vmap" turns factor
+    refinement on exactly when the factor reaches kernel K3 (a CUDA
+    batch in f32)."""
+    if name not in STRATEGIES:
+        raise ValueError(f"unknown kktsolver {name!r}; expected one of "
+                         f"{STRATEGIES}")
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"kktsolver {name!r} is not ported yet; kvxopt_tpu_torch has "
+            f"{PORTED} (ROADMAP.md, Queue 1)")
+    cones.require_l_only(dims)
+    if A is not None and A.shape[-2]:
+        raise NotImplementedError(
+            "equality constraints (p > 0) are not ported yet "
+            "(ROADMAP.md, Queue 1)")
+    edims = dims.with_extra_l(mnl) if mnl else dims
+    fn = {"chol2": _kkt_chol2,
+          "chol2_mixed": partial(_kkt_chol2_mixed, ozaki=ozaki,
+                                 facref=facref),
+          # without the per-lane f64-factor fallback; batch drivers pair
+          # it with an all-f64 re-solve of the lanes that failed
+          "chol2_mixed_nofb": partial(_kkt_chol2_mixed, fallback=False,
+                                      ozaki=ozaki, facref=facref)}[name]
+    return partial(fn, dims, edims, G, P, mnl, reg)
+
+
+def _geff(G, Df, mnl):
+    if mnl:
+        if Df is None:
+            raise ValueError("Df required when mnl > 0")
+        return torch.cat([Df, G], dim=-2) if G.shape[-2] else Df
+    return G
+
+
+def _keff(P, H, G):
+    """P + H, or zeros (B, n, n) shaped like G's columns."""
+    K = None
+    for M in (P, H):
+        if M is not None:
+            K = M if K is None else K + M
+    if K is None:
+        B, _, n = G.shape
+        return torch.zeros((B, n, n), dtype=G.dtype, device=G.device)
+    return K
+
+
+def _chol_spd(K, reg):
+    if reg:
+        K = K + reg * _eye_like(K)
+    if K.dtype == torch.float32:
+        # f32 batches factor on kernel K1 (ops/ipm_chol.py): (L, Dinv)
+        return chol_factor(K)
+    return cholesky_nan(K)
+
+
+def _chol_solve(L, b):
+    if isinstance(L, tuple):
+        return chol_solve(L[0], L[1], b)
+    return chol_solve_ls_ref(L, None, b)
+
+
+def _empty_y(bx):
+    return torch.zeros((bx.shape[0], 0), dtype=bx.dtype, device=bx.device)
+
+
+# ---------------------------------------------------------------------------
+# chol2 — condensed normal equations (reference misc.py:1352 kkt_chol2)
+# ---------------------------------------------------------------------------
+
+def _kkt_chol2(dims, edims, G, P, mnl, reg, W, H=None, Df=None):
+    """Eliminate uz, factor K = P + H + Gs'Gs (Gs = W^{-T} Geff)."""
+    Geff = _geff(G, Df, mnl)
+    Gs = cones.wtw_scale_cols(edims, W, Geff)
+    K = _keff(P, H, G) + Gs.transpose(-1, -2) @ Gs
+    L = _chol_spd(K, reg)
+
+    def solve(bx, by, bz):
+        bzs = cones.scale(edims, W, bz, trans=True, inverse=True)
+        ux = _chol_solve(L, bx + _tmv(Gs, bzs))
+        uz = cones.scale(edims, W, _mv(Gs, ux) - bzs, inverse=True)
+        return ux, _empty_y(bx), uz
+
+    return solve
+
+
+# ---------------------------------------------------------------------------
+# chol2_mixed — factor in float32, recover float64 accuracy by refinement
+# against the f64 operator.
+# ---------------------------------------------------------------------------
+
+def cond_any(pred, true_fn, false_fn, *ops):
+    """Per-lane select between two branches where the (expensive) true
+    branch runs only if some lane needs it: the batched form of
+    `lax.cond(pred, ...)` that kvxopt_tpu.kkt.cond_any gives a vmapped
+    trace.  pred is (B,) bool."""
+    out_f = false_fn(*ops)
+    if not bool(pred.any()):
+        return out_f
+    out_t = true_fn(*ops)
+    return torch.where(pred.reshape((-1,) + (1,) * (out_t.ndim - 1)),
+                       out_t, out_f)
+
+
+def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
+                rtol_factor=500.0, fallback=True, keq64_build=None):
+    """Equilibrated f32 Cholesky + f64 preconditioned CG against the
+    operator kmul, with an optional f64-factor fallback for lanes whose
+    measured refinement contraction says f32 carries too little
+    information.
+
+    - kmul(x): exact (f64) product with the SPD matrices, x (B, n);
+    - K32: the (B, n, n) f32 matrices to factor;
+    - k64_build(): the dense f64 matrices, built only if a lane falls
+      back;
+    - keq64_build(dsc): the equilibrated f64 matrices to ~1e-12, for the
+      one-shot factor refinement (None: off).
+
+    Returns ksolve(b) for b (B, n); with the fallback, ksolve.bad is the
+    (B,) mask of lanes that took it."""
+    eps64 = torch.finfo(dtype).eps
+    dsc32 = 1.0 / torch.sqrt(torch.clamp(
+        torch.diagonal(K32, dim1=-2, dim2=-1), min=1e-30))
+    Keq32 = K32 * dsc32[:, :, None] * dsc32[:, None, :]
+    L32 = _chol_spd(Keq32, 0.0)
+    dsc = dsc32.to(dtype)
+
+    D32 = L0m = None
+    if keq64_build is not None:
+        # One-shot factor refinement: with E = Keq - L0 L0' to ~1e-12
+        # (exact-split Gram), D = L0 Phi(L0^{-1} E L0^{-T}) (Phi = strict
+        # lower + half diagonal) makes (L0+D)(L0+D)' = Keq to O(eps32^2);
+        # applied first-order around the base solve S0 = (L0 L0')^{-1}:
+        #   (MM')^{-1} r ~ u - S0(D L0' u + L0 D' u),  u = S0 r.
+        # The two n-RHS triangular solves run on kernel K3.
+        Keq64 = keq64_build(dsc)
+        L0m = L32[0]
+        L0_64 = L0m.to(dtype)
+        E32 = (Keq64 - ata(L0_64.transpose(-1, -2))).to(K32.dtype)
+        F1 = tri_lower_solve(L0m, L32[1], E32)
+        F = tri_lower_solve(L0m, L32[1],
+                            F1.transpose(-1, -2)).transpose(-1, -2)
+        Phi = torch.tril(F, -1) + 0.5 * torch.diag_embed(
+            torch.diagonal(F, dim1=-2, dim2=-1))
+        D32 = L0m @ Phi
+
+    def m_apply(r):
+        # approximate K^{-1} r through the equilibrated f32 factor
+        r32 = (dsc * r).to(K32.dtype)
+        if D32 is None:
+            return dsc * _chol_solve(L32, r32).to(dtype)
+        u = _chol_solve(L32, r32)
+        w = _mv(D32, _tmv(L0m, u)) + _mv(L0m, _tmv(D32, u))
+        z = u - _chol_solve(L32, w)
+        return dsc * z.to(dtype)
+
+    def norm(v):
+        return torch.linalg.vector_norm(v, dim=-1)
+
+    def dot(u, v):
+        return torch.sum(u * v, dim=-1)
+
+    def solve32(b):
+        # Preconditioned CG on K x = b, the f32 factor as preconditioner.
+        # Lanes iterate until their own exit holds; a finished lane's
+        # carry is frozen, as in a vmapped lax.while_loop.
+        bn = norm(b)
+        tol = rtol_factor * eps64 * torch.clamp(bn, min=1e-300)
+        x = m_apply(b)
+        r = b - kmul(x)
+        z = m_apply(r)
+        p = z
+        rz = dot(r, z)
+        xb = x
+        rb = norm(r)
+        since = torch.zeros_like(rb, dtype=torch.int32)
+        k = torch.zeros_like(since)
+        while True:
+            live = ((rb > tol) & (k < max_refine) & (since < 8) &
+                    torch.isfinite(rb))
+            if not bool(live.any()):
+                return xb
+            Kp = kmul(p)
+            pKp = dot(p, Kp)
+            alpha = rz / torch.where(pKp > 0, pKp,
+                                     torch.full_like(pKp, float("inf")))
+            x_ = x + alpha[:, None] * p
+            r_ = r - alpha[:, None] * Kp
+            z_ = m_apply(r_)
+            rz2 = dot(r_, z_)
+            # rz can go negative (the f32 preconditioner is only
+            # approximately PD); the floor must keep its sign
+            beta = torch.where(torch.abs(rz) > 1e-300, rz2 / rz,
+                               torch.zeros_like(rz))
+            p_ = z_ + beta[:, None] * p
+            rn = norm(r_)
+            better = torch.isfinite(rn) & (rn < rb)
+            xb_ = torch.where(better[:, None], x_, xb)
+            rb_ = torch.where(better, rn, rb)
+            since_ = torch.where(better, torch.zeros_like(since), since + 1)
+            lv = live[:, None]
+            x = torch.where(lv, x_, x)
+            r = torch.where(lv, r_, r)
+            z = torch.where(lv, z_, z)
+            p = torch.where(lv, p_, p)
+            rz = torch.where(live, rz2, rz)
+            xb = torch.where(lv, xb_, xb)
+            rb = torch.where(live, rb_, rb)
+            since = torch.where(live, since_, since)
+            k = torch.where(live, k + 1, k)
+
+    if not fallback:
+        return solve32
+
+    # probe the actual refinement contraction rate per lane
+    b0 = dsc / norm(dsc)[:, None]
+    x0 = m_apply(b0)
+    r0 = b0 - kmul(x0)
+    x1 = x0 + m_apply(r0)
+    r1 = b0 - kmul(x1)
+    n0 = norm(r0)
+    n1 = norm(r1)
+    contr = n1 / torch.clamp(n0, min=1e-300)
+    bad = (~torch.isfinite(contr)) | (contr > 0.5) | (~torch.isfinite(n0))
+
+    # the f64 factor is built only if some lane needs it; cond_any reads
+    # it only then
+    L64 = cholesky_nan(k64_build()) if bool(bad.any()) else None
+
+    def ksolve(b):
+        return cond_any(bad, lambda v: chol_solve_ls_ref(L64, None, v),
+                        solve32, b)
+
+    ksolve.bad = bad
+    return ksolve
+
+
+def mixed_spd_solver(K, reg=0.0, cdt=None, max_refine=30,
+                     rtol_factor=50.0, fallback=True, ozaki=None,
+                     facref=None):
+    """Dense-matrix wrapper around `_mixed_core` for a batch K (B, n, n)."""
+    cdt = cdt or config.compute_dtype
+    if reg:
+        K = K + reg * _eye_like(K)
+    if ozaki is None:
+        ozaki = config.ozaki_refine
+    if facref is None:
+        facref = config.factor_refine
+    if ozaki:
+        kmul = OzakiOperator(K).mv
+    else:
+        def kmul(x):
+            return _mv(K, x)
+    keq = None
+    if facref:
+        def keq(dsc):
+            return K * dsc[:, :, None] * dsc[:, None, :]
+    return _mixed_core(kmul, K.to(cdt), K.dtype, lambda: K, max_refine,
+                       rtol_factor, fallback, keq64_build=keq)
+
+
+def _kkt_chol2_mixed(dims, edims, G, P, mnl, reg, W, H=None, Df=None,
+                     fallback=True, ozaki=None, facref=None):
+    """Condensed normal equations with the mixed-precision SPD solver:
+    K = P + Gs'Gs formed and factored in f32, f64 work limited to
+    operator products inside the refinement loop."""
+    cdt = config.compute_dtype
+    Geff = _geff(G, Df, mnl)
+    Gs = cones.wtw_scale_cols(edims, W, Geff)
+    Gs32 = Gs.to(cdt)
+    Kx32 = _keff(P, H, G).to(cdt) + Gs32.transpose(-1, -2) @ Gs32
+    if reg:
+        Kx32 = Kx32 + reg * _eye_like(Kx32)
+
+    if ozaki is None:
+        ozaki = config.ozaki_refine
+    if ozaki:
+        gop = OzakiOperator(Gs)
+        pop = OzakiOperator(P) if P is not None else None
+        hop = OzakiOperator(H) if H is not None else None
+
+        def kmul(x):
+            out = gop.normal_mv(x)
+            if pop is not None:
+                out = out + pop.mv(x)
+            if hop is not None:
+                out = out + hop.mv(x)
+            if reg:
+                out = out + reg * x
+            return out
+    else:
+        def kmul(x):
+            out = _tmv(Gs, _mv(Gs, x))
+            if P is not None:
+                out = out + _mv(P, x)
+            if H is not None:
+                out = out + _mv(H, x)
+            if reg:
+                out = out + reg * x
+            return out
+
+    def k64_build():
+        K = _keff(P, H, G) + Gs.transpose(-1, -2) @ Gs
+        if reg:
+            K = K + reg * _eye_like(K)
+        return K
+
+    if facref == "vmap":
+        # refine exactly when the setup's n-RHS solves run on kernel K3
+        facref = (config.factor_refine and cdt == torch.float32
+                  and G.device.type == "cuda")
+    elif facref is None:
+        facref = config.factor_refine
+    keq64_build = None
+    if facref:
+
+        def keq64_build(dsc):
+            # equilibrated f64 K to ~1e-12 with an exact-split Gram
+            K = _keff(P, H, G) + ata(Gs)
+            if reg:
+                K = K + reg * _eye_like(K)
+            return K * dsc[:, :, None] * dsc[:, None, :]
+
+    ksolve = _mixed_core(kmul, Kx32, G.dtype, k64_build,
+                         fallback=fallback, keq64_build=keq64_build)
+
+    def solve(bx, by, bz):
+        bzs = cones.scale(edims, W, bz, trans=True, inverse=True)
+        ux = ksolve(bx + _tmv(Gs, bzs))
+        uz = cones.scale(edims, W, _mv(Gs, ux) - bzs, inverse=True)
+        return ux, _empty_y(bx), uz
+
+    return solve

@@ -1,0 +1,36 @@
+"""Compute kernels for the hot path: batched block Cholesky (K1) and the
+triangular solves against it (K2, K3), hand-written CUDA for Hopper with
+a plain PyTorch version beside each (ops/chol_ls.py)."""
+
+import torch
+
+from .chol_ls import (LAUNCHES, batched_cholesky_ls,  # noqa: F401
+                      chol_solve_ls, tri_solve_ls)
+
+
+def _use_ls(A):
+    return A.ndim == 3 and A.dtype == torch.float32
+
+
+def best_cholesky(A):
+    """Batched lower Cholesky: kernel K1 for a batch of f32 matrices
+    (its plain version on the CPU), torch.linalg otherwise."""
+    if _use_ls(A):
+        return batched_cholesky_ls(A)[0]
+    return torch.linalg.cholesky(A)
+
+
+def best_chol_factor_solve(A):
+    """(factor, solve) pair for batched SPD systems: factor(A) returns an
+    opaque factor object; solve(f, rhs) solves A x = rhs for rhs of shape
+    (B,n) or (B,n,k).  K1 + K2 for f32 batches, torch.linalg otherwise."""
+    if _use_ls(A):
+        L, Dinv = batched_cholesky_ls(A)
+        return (L, Dinv), lambda f, r: chol_solve_ls(f[0], f[1], r)
+    L = torch.linalg.cholesky(A)
+
+    def solve(L, rhs):
+        r3 = rhs[..., None] if rhs.ndim == L.ndim - 1 else rhs
+        x = torch.cholesky_solve(r3, L)
+        return x[..., 0] if rhs.ndim == L.ndim - 1 else x
+    return L, solve

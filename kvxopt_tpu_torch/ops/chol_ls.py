@@ -1,0 +1,222 @@
+"""Batched blocked Cholesky with diagonal-block inverses, and the
+triangular solves against it: CUDA kernels K1, K2, K3 and their plain
+PyTorch versions.
+
+Counterpart of kvxopt_tpu/ops/chol_ls.py.  The kernels live in
+csrc/chol_ls.cu (built by ops/_build.py); their source notes say which
+Pallas function each replaces and what bounds it on the card.
+
+Every wrapper keeps the JAX function's contract: f32 tensors, n padded
+to a multiple of 128 with identity on the padded diagonal, the factor
+returned as (tril(L) (B,n,n), Dinv (nb,B,128,128)).  A tensor on the CPU
+goes to the plain version; a CUDA tensor goes to the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+BS = 128
+
+# Kernel launches per wrapper, counted where the kernel is launched.
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}
+
+_SMEM_LIMIT = 227 * 1024
+_MODE = {"both": 0, "fwd": 1, "bwd": 2}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    from ._build import load_library
+    lib = load_library()
+    if not getattr(lib, "_kvx_typed", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.kvx_chol_ls.argtypes = [vp, vp, ci, ci, vp]
+        lib.kvx_chol_ls.restype = ci
+        lib.kvx_sweep.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.kvx_sweep.restype = ci
+        lib.kvx_sweep_smem.argtypes = [ci, ci]
+        lib.kvx_sweep_smem.restype = ci
+        lib._kvx_typed = True
+    return lib
+
+
+def _on_cpu(*ts):
+    devs = {t.device.type for t in ts}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"tensors on unsupported or mixed devices: {devs}")
+
+
+def _check(t, name, ndim):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {t.ndim}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes a contiguous tensor")
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _pad_identity(A, npad):
+    """(B,n,n) -> (B,npad,npad) with identity on the padded diagonal."""
+    B, n, _ = A.shape
+    if npad == n:
+        return A.clone()
+    Ap = torch.zeros((B, npad, npad), dtype=A.dtype, device=A.device)
+    Ap[:, :n, :n] = A
+    idx = torch.arange(n, npad, device=A.device)
+    Ap[:, idx, idx] = 1.0
+    return Ap
+
+
+def cholesky_nan(K):
+    """Lower Cholesky factor, NaN for a matrix that is not positive
+    definite (jnp.linalg.cholesky's convention, which the IPM turns into
+    status SINGULAR)."""
+    L, info = torch.linalg.cholesky_ex(K)
+    bad = (info != 0).reshape(info.shape + (1, 1))
+    return torch.where(bad, torch.full_like(L, float("nan")), L)
+
+
+def block_inverses(L):
+    """Inverses of the 128x128 diagonal blocks of lower-triangular
+    (B,n,n) factors, padded with identity -> (B,nb,128,128)."""
+    B, n, _ = L.shape
+    nb = -(-n // BS)
+    Lp = L if nb * BS == n else _pad_identity(L, nb * BS)
+    blocks = torch.stack([Lp[:, k * BS:(k + 1) * BS, k * BS:(k + 1) * BS]
+                          for k in range(nb)], dim=1)
+    eye = torch.eye(BS, dtype=L.dtype, device=L.device).expand_as(blocks)
+    return torch.linalg.solve_triangular(blocks, eye, upper=False)
+
+
+# ---------------------------------------------------------------------------
+# K1: factor
+# ---------------------------------------------------------------------------
+
+def batched_cholesky_ls_ref(A):
+    """Plain version of K1: cholesky_ex on the padded matrices, then the
+    diagonal-block inverses by triangular solves."""
+    B, n, _ = A.shape
+    nb = -(-n // BS)
+    Lp = cholesky_nan(_pad_identity(A, nb * BS))
+    Dinv = block_inverses(Lp).transpose(0, 1).contiguous()
+    return Lp[:, :n, :n].contiguous(), Dinv
+
+
+def batched_cholesky_ls(A):
+    """Lower Cholesky factors of a batch of SPD matrices (B,n,n) f32 and
+    the inverses of their 128-wide diagonal blocks (nb,B,128,128)."""
+    if _on_cpu(A):
+        return batched_cholesky_ls_ref(A)
+    _check(A, "A", 3)
+    B, n, n2 = A.shape
+    if n != n2:
+        raise ValueError(f"A: expected square matrices, got {tuple(A.shape)}")
+    nb = -(-n // BS)
+    npad = nb * BS
+    O = _pad_identity(A, npad)
+    Dinv = torch.empty((nb, B, BS, BS), dtype=A.dtype, device=A.device)
+    rc = _lib().kvx_chol_ls(O.data_ptr(), Dinv.data_ptr(), B, npad,
+                            _stream())
+    _raise_on(rc, "batched_cholesky_ls")
+    LAUNCHES["K1"] += 1
+    return torch.tril(O[:, :n, :n]), Dinv
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3: sweeps
+# ---------------------------------------------------------------------------
+
+def _as3(rhs):
+    return (rhs[:, :, None], True) if rhs.ndim == 2 else (rhs, False)
+
+
+def chol_solve_ls_ref(L, Dinv, rhs):
+    """Plain version of K2: two triangular solves."""
+    r3, vec = _as3(rhs)
+    y = torch.linalg.solve_triangular(L, r3, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return x[:, :, 0] if vec else x
+
+
+def tri_solve_ls_ref(L, Dinv, rhs, trans=False):
+    """Plain version of K3: L X = rhs, or L' X = rhs when trans."""
+    r3, vec = _as3(rhs)
+    if trans:
+        x = torch.linalg.solve_triangular(L.transpose(-1, -2), r3,
+                                          upper=True)
+    else:
+        x = torch.linalg.solve_triangular(L, r3, upper=False)
+    return x[:, :, 0] if vec else x
+
+
+def _sweep(L, Dinv, rhs, mode, what):
+    _check(L, "L", 3)
+    _check(Dinv, "Dinv", 4)
+    # rhs is staged into a fresh (B, kpad, npad) buffer, so any strides do
+    if rhs.dtype != torch.float32:
+        raise TypeError(f"rhs: kernel takes float32, got {rhs.dtype}")
+    B, n, _ = L.shape
+    nb = Dinv.shape[0]
+    npad = nb * BS
+    if Dinv.shape != (nb, B, BS, BS) or npad < n or npad - n >= BS:
+        raise ValueError(f"Dinv shape {tuple(Dinv.shape)} does not match "
+                         f"L {tuple(L.shape)}")
+    r3, vec = _as3(rhs)
+    if r3.shape[:2] != (B, n):
+        raise ValueError(f"rhs shape {tuple(rhs.shape)} does not match L")
+    k = r3.shape[2]
+    lib = _lib()
+    kc = 1 if k == 1 else 8
+    if lib.kvx_sweep_smem(npad, kc) > _SMEM_LIMIT:
+        kc = 1
+    if lib.kvx_sweep_smem(npad, kc) > _SMEM_LIMIT:
+        raise ValueError(f"{what}: n={n} too large for one CTA's shared "
+                         "memory")
+    kpad = -(-k // kc) * kc
+    Lp = L if npad == n else _pad_identity(L, npad)
+    Z = torch.zeros((B, kpad, npad), dtype=L.dtype, device=L.device)
+    Z[:, :k, :n] = r3.transpose(1, 2)
+    rc = lib.kvx_sweep(Lp.data_ptr(), Dinv.data_ptr(), Z.data_ptr(), B,
+                       npad, kpad, kc, _MODE[mode], _stream())
+    _raise_on(rc, what)
+    x = Z[:, :k, :n].transpose(1, 2)
+    return x[:, :, 0] if vec else x
+
+
+def chol_solve_ls(L, Dinv, rhs):
+    """Solve L L' X = rhs given batched_cholesky_ls output; rhs (B,n) or
+    (B,n,k), returns the same shape."""
+    if _on_cpu(L, Dinv, rhs):
+        return chol_solve_ls_ref(L, Dinv, rhs)
+    x = _sweep(L, Dinv, rhs, "both", "chol_solve_ls")
+    LAUNCHES["K2"] += 1
+    return x
+
+
+def tri_solve_ls(L, Dinv, rhs, trans=False):
+    """Solve L X = rhs (trans=False) or L' X = rhs (trans=True) given
+    batched_cholesky_ls output, for rhs (B,n) or (B,n,k)."""
+    if _on_cpu(L, Dinv, rhs):
+        return tri_solve_ls_ref(L, Dinv, rhs, trans)
+    x = _sweep(L, Dinv, rhs, "bwd" if trans else "fwd", "tri_solve_ls")
+    LAUNCHES["K3"] += 1
+    return x

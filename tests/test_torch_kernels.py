@@ -1,0 +1,218 @@
+"""Kernels K1/K2/K3 of kvxopt_tpu_torch.ops.chol_ls.
+
+On the CPU the wrappers run their plain PyTorch versions; those are held
+against the JAX package's Pallas kernels run in interpret mode (as
+tests/test_ops.py runs them).  The CUDA kernels themselves are held
+against the plain versions in the tests marked `cuda`, which skip where
+no card is present.  JAX is imported only by the parity tests, so on the
+card (which has no JAX) the kernel tests run alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+Tolerances are tests/test_ops.py's: f32 factors of
+well-conditioned matrices (cond ~ 10) agree to ~1e-6 relative, so 1e-5
+on L and on solve residuals, 1e-4 on Dinv*L_kk = I and on single sweeps.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kvxopt_tpu_torch.ops import _build, chol_ls as cl
+
+SHAPES = [(2, 128), (2, 200), (3, 256)]
+
+
+def spd(B, n, seed=1):
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, 2 * n, n)).astype(np.float32)
+    return np.einsum("bij,bik->bjk", G, G) + n * np.eye(n, dtype=np.float32)
+
+
+def rhs(B, n, k, seed=2):
+    rng = np.random.default_rng(seed)
+    shape = (B, n) if k == 1 else (B, n, k)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+_JAX_FACTORS = {}
+
+
+def jax_ops():
+    import jax.numpy as jnp
+    from kvxopt_tpu.ops import chol_ls
+    return jnp, chol_ls
+
+
+def jax_factors(B, n):
+    """The JAX kernel's (L, Dinv) in interpret mode, once per shape."""
+    if (B, n) not in _JAX_FACTORS:
+        jnp, jcl = jax_ops()
+        L, D = jcl.batched_cholesky_ls(jnp.asarray(spd(B, n)),
+                                       interpret=True)
+        _JAX_FACTORS[(B, n)] = (np.array(L), np.array(D))
+    return _JAX_FACTORS[(B, n)]
+
+
+def dinv_identity_err(L, Dinv):
+    """max |Dinv_kb * L_kk - I| over the diagonal blocks of every lane."""
+    L, Dinv = np.asarray(L), np.asarray(Dinv)
+    n = L.shape[-1]
+    err = 0.0
+    for kb in range(Dinv.shape[0]):
+        lo, hi = kb * 128, min(kb * 128 + 128, n)
+        I = Dinv[kb, :, :hi - lo, :hi - lo] @ L[:, lo:hi, lo:hi]
+        err = max(err, float(np.abs(I - np.eye(hi - lo)).max()))
+    return err
+
+
+@pytest.mark.parametrize("B,n", SHAPES)
+def test_factor_plain_matches_jax(B, n):
+    Lj, Dj = jax_factors(B, n)
+    Lt, Dt = cl.batched_cholesky_ls(torch.from_numpy(spd(B, n)))
+    assert Lt.shape == Lj.shape and Dt.shape == Dj.shape
+    assert np.abs(Lt.numpy() - Lj).max() / np.abs(Lj).max() < 1e-5
+    assert dinv_identity_err(Lt, Dt) < 1e-4
+    assert dinv_identity_err(Lj, Dj) < 1e-4
+    assert np.array_equal(np.triu(Lt.numpy(), 1), np.zeros_like(Lj))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("B,n", SHAPES)
+def test_solve_plain_matches_jax(B, n, k):
+    Lj, Dj = jax_factors(B, n)
+    b = rhs(B, n, k)
+    jnp, jcl = jax_ops()
+    xj = np.asarray(jcl.chol_solve_ls(jnp.asarray(Lj), jnp.asarray(Dj),
+                                      jnp.asarray(b), interpret=True))
+    xt = cl.chol_solve_ls(torch.from_numpy(Lj), torch.from_numpy(Dj),
+                          torch.from_numpy(b)).numpy()
+    assert xt.shape == b.shape
+    K = spd(B, n).astype(np.float64)
+    r = np.einsum("bij,bj...->bi...", K, xt) - b
+    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-5
+    assert np.abs(xt - xj).max() / np.abs(xj).max() < 1e-5
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("B,n", SHAPES)
+def test_tri_plain_matches_jax(B, n, k, trans):
+    Lj, Dj = jax_factors(B, n)
+    b = rhs(B, n, k, seed=3)
+    jnp, jcl = jax_ops()
+    xj = np.asarray(jcl.tri_solve_ls(jnp.asarray(Lj), jnp.asarray(Dj),
+                                     jnp.asarray(b), trans=trans,
+                                     interpret=True))
+    xt = cl.tri_solve_ls(torch.from_numpy(Lj), torch.from_numpy(Dj),
+                         torch.from_numpy(b), trans=trans).numpy()
+    assert xt.shape == b.shape
+    assert np.abs(xt - xj).max() / (np.abs(xj).max() + 1) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# No fallback: the CPU takes the plain path without touching CUDA, and a
+# tensor on any other device raises.
+# ---------------------------------------------------------------------------
+
+def test_cpu_wrappers_never_consult_cuda(monkeypatch):
+    def forbidden(*a, **k):
+        raise AssertionError("CPU path consulted CUDA or the kernels")
+    monkeypatch.setattr(torch.cuda, "is_available", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    monkeypatch.setattr(cl, "_lib", forbidden)
+    before = dict(cl.LAUNCHES)
+    K = torch.from_numpy(spd(2, 130))
+    L, D = cl.batched_cholesky_ls(K)
+    cl.chol_solve_ls(L, D, torch.ones((2, 130)))
+    cl.tri_solve_ls(L, D, torch.ones((2, 130, 3)), trans=True)
+    assert cl.LAUNCHES == before
+
+
+def indefinite_pair(n=200):
+    """Two lanes: lane 0 SPD, lane 1 with a negative pivot at row 150
+    (past the first 128 block, so the factor breaks inside the loop)."""
+    K = spd(2, n)
+    K[1, 150, 150] = -1.0
+    return torch.from_numpy(K)
+
+
+def test_indefinite_lane_gives_nan_on_cpu():
+    """A non-positive pivot gives NaN, not an error (the IPM turns it into
+    status SINGULAR); the other lanes are untouched."""
+    L, _ = cl.batched_cholesky_ls(indefinite_pair())
+    assert bool(torch.isfinite(L[0]).all())
+    assert bool(torch.isnan(L[1]).any())
+
+
+def test_non_cpu_non_cuda_tensor_raises():
+    K = torch.empty((2, 128, 128), device="meta")
+    with pytest.raises(ValueError, match="unsupported or mixed devices"):
+        cl.batched_cholesky_ls(K)
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load_library()
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels against their plain versions (card only).
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", SHAPES + [(16, 512)])
+def test_kernels_match_plain_on_card(cuda, B, n):
+    K = torch.from_numpy(spd(B, n)).to(cuda)
+    L, D = cl.batched_cholesky_ls(K)
+    Lr, _ = cl.batched_cholesky_ls_ref(K)
+    assert float((L - Lr).abs().max() / Lr.abs().max()) < 1e-5
+    assert dinv_identity_err(L.cpu(), D.cpu()) < 1e-4
+    for k in (1, 4):
+        b = torch.from_numpy(rhs(B, n, k)).to(cuda)
+        x = cl.chol_solve_ls(L, D, b)
+        r = torch.einsum("bij,bj...->bi...", K.double(), x.double()) - b
+        assert float(torch.linalg.norm(r) / torch.linalg.norm(b)) < 1e-5
+        for trans in (False, True):
+            x = cl.tri_solve_ls(L, D, b, trans=trans)
+            xr = cl.tri_solve_ls_ref(L, D, b, trans=trans)
+            assert float((x - xr).abs().max() /
+                         (xr.abs().max() + 1)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_indefinite_lane_gives_nan_on_card(cuda):
+    L, D = cl.batched_cholesky_ls(indefinite_pair().to(cuda))
+    assert bool(torch.isfinite(L[0]).all())
+    assert bool(torch.isnan(L[1]).any())
+    x = cl.chol_solve_ls(L, D, torch.ones((2, 200), device=cuda))
+    assert bool(torch.isfinite(x[0]).all())
+    assert bool(torch.isnan(x[1]).any())
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_bad_inputs(cuda):
+    K = torch.from_numpy(spd(2, 128)).to(cuda)
+    with pytest.raises(TypeError):
+        cl.batched_cholesky_ls(K.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cl.batched_cholesky_ls(K.transpose(1, 2))
+    L, D = cl.batched_cholesky_ls(K)
+    b = torch.ones((2, 128), device=cuda)
+    with pytest.raises(TypeError):
+        cl.chol_solve_ls(L, D, b.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cl.chol_solve_ls(L.transpose(1, 2), D, b)
+    with pytest.raises(ValueError, match="mixed devices"):
+        cl.tri_solve_ls(L, D, b.cpu())
