@@ -1,19 +1,32 @@
 """On-card gate for kvxopt_tpu_torch: builds the CUDA kernels, checks them
-against their plain PyTorch versions, and drives the port's main path,
-the two-pass batched mixed-precision cone-QP solve, on one GPU.
+against their plain PyTorch versions, and drives the port's main paths
+on one GPU: the kernel entry point kvxopt_tpu_torch.ops.batched_cholesky
+(K4) and the two-pass batched mixed-precision cone-QP solve, on the
+orthant and on orthant + second-order cones + equality constraints.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
   0. environment and kernel build;
-  1. kernels K1/K2/K3 against their plain versions at the solve's shapes
-     (B=16 n=512) and a padded shape (B=3 n=200), with times, plus the
+  1. kernels K1/K2/K3 against their plain versions at the solves' shapes
+     (B=16 n=512, K2 at k=1 and k=p=32, and the Schur complement's
+     B=16 n=32) and a padded shape (B=3 n=200), with times, plus the
      factor + 2 solves headline shape B=16 n=1024;
-  2. batched_qp_solver_mixed on 16 random QPs (n=512, m=1024, f64 state,
-     abstol/feastol 1e-7): every lane optimal, KKT residuals < 1e-6,
-     every kernel launched during the solve;
-  3. the same 16 problems on CPU tensors (the plain versions, same
-     options): same status, iterations within 1, x within 1e-6.
+  2. K4 against its plain version and K1's L at B=16 n=512 and B=3
+     n=200, with times; K4 through kvxopt_tpu_torch.ops.batched_cholesky;
+     factor-only scaling rows (B, n) = (16,1024), (8,2048), (2,4096) for
+     K1, K4 and the plain version, in TFLOP/s = B n^3/3/t;
+  3. batched_qp_solver_mixed on 16 random QPs (n=512, m=1024 orthant,
+     f64 state, abstol/feastol 1e-7): every lane optimal, KKT residuals
+     < 1e-6, K1-K3 launched during the solve;
+  4. the same 16 problems on CPU tensors (the plain versions, same
+     options): same status, iterations within 1, x within 1e-6;
+  5. batched_qp_solver_mixed(with_eq=True) on 16 random QPs with n=512,
+     l=512, q=[64]*8, p=32: every lane optimal, stationarity, Gx+s=h and
+     Ax=b residuals < 1e-6, s and z in the cones, K1 launched on the
+     Schur complement (n=32) and K2 with k=p, K1-K3 launched;
+  6. phase 5's problems on CPU tensors: same status, iterations within
+     1, x within 1e-6.
 The last line is {"ok": true, "device": {...}}; the line before it is
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
 """
@@ -29,6 +42,7 @@ import torch
 
 B, N, M = 16, 512, 1024
 SEEDS = range(16)
+L_EQ, Q_EQ, P_EQ = 512, (64,) * 8, 32   # phase 5: m = 512 + 8 * 64 = M
 
 
 def fail(msg):
@@ -60,11 +74,11 @@ def median_ms(fn, reps=20):
     return float(np.median(ts))
 
 
-def spd_batch(Bn, n, seed, device):
-    rng = np.random.default_rng(seed)
-    G = rng.standard_normal((Bn, 2 * n, n)).astype(np.float32)
-    K = np.einsum("bij,bik->bjk", G, G) + n * np.eye(n, dtype=np.float32)
-    return torch.as_tensor(K, device=device)
+def spd_batch(Bn, n, seed, dev):
+    """G'G + nI with G (2n, n) standard normal, f32, made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((Bn, 2 * n, n), generator=g, device=dev)
+    return G.mT @ G + n * torch.eye(n, device=dev)
 
 
 def large_problem(seed, n=N, m=M):
@@ -76,6 +90,30 @@ def large_problem(seed, n=N, m=M):
     G = rng.standard_normal((m, n))
     h = G @ rng.standard_normal(n) + rng.uniform(0.5, 1.5, m)
     return P, q, G, h
+
+
+def lqeq_problem(seed, n=N, l=L_EQ, qs=Q_EQ, p=P_EQ):
+    """Feasible by construction: P = MM' + nI and q as bench._large_problem;
+    G standard normal, x0 = 0.1 randn; s0 uniform(0.5, 1.5) on the
+    orthant and SOC blocks as bench_configs._socp_batch builds them;
+    h = G x0 + s0; A standard normal (p, n), b = A x0."""
+    rng = np.random.default_rng(seed)
+    m = l + sum(qs)
+    Mx = rng.standard_normal((n, n))
+    P = Mx @ Mx.T + n * np.eye(n)
+    q = rng.standard_normal(n)
+    G = rng.standard_normal((m, n))
+    x0 = 0.1 * rng.standard_normal(n)
+    s0 = np.empty(m)
+    s0[:l] = rng.uniform(0.5, 1.5, l)
+    ofs = l
+    for qm in qs:
+        u = rng.standard_normal(qm - 1) * 0.3
+        s0[ofs] = np.linalg.norm(u) + rng.uniform(0.5, 1.5)
+        s0[ofs + 1:ofs + qm] = u
+        ofs += qm
+    A = rng.standard_normal((p, n))
+    return P, q, G, G @ x0 + s0, A, A @ x0
 
 
 def phase0():
@@ -99,7 +137,7 @@ def phase0():
 def phase1(dev):
     from kvxopt_tpu_torch.ops import chol_ls as cl
     rows = {}
-    for Bn, n in ((B, N), (3, 200)):
+    for Bn, n in ((B, N), (3, 200), (B, P_EQ)):
         K = spd_batch(Bn, n, 1, dev)
         L, Dinv = cl.batched_cholesky_ls(K)
         Lr, _ = cl.batched_cholesky_ls_ref(K)
@@ -120,7 +158,7 @@ def phase1(dev):
         rng = np.random.default_rng(2)
         K64 = K.double()
         errs2 = {}
-        for k in (1, 4):
+        for k in (1, 4) + ((P_EQ,) if n == N else ()):
             shape = (Bn, n) if k == 1 else (Bn, n, k)
             b = torch.as_tensor(rng.standard_normal(shape).astype(
                 np.float32), device=dev)
@@ -167,6 +205,12 @@ def phase1(dev):
             for k, (a, p) in t.items():
                 print(f"time {k} B={B} n={N}: kernel {a:.4f} ms, "
                       f"plain {p:.4f} ms (median of 20)")
+            bp = torch.randn((B, N, P_EQ), device=dev)
+            print(f"time K2 B={B} n={N} k={P_EQ}: kernel "
+                  f"{median_ms(lambda: cl.chol_solve_ls(L, Dinv, bp)):.4f} "
+                  f"ms, plain "
+                  f"{median_ms(lambda: cl.chol_solve_ls_ref(L, Dinv, bp)):.4f}"
+                  f" ms (median of 20)")
 
     Kh = spd_batch(B, 1024, 3, dev)
     bh = torch.randn((B, 1024), device=dev)
@@ -187,36 +231,123 @@ def phase1(dev):
     return rows
 
 
-def residuals(P, q, G, h, x, s, z):
+def phase2(dev):
+    """K4 against its plain version and K1's L, then K4's own path: the
+    ops entry point, with the counts set to 0 just before it."""
+    from kvxopt_tpu_torch import ops
+    from kvxopt_tpu_torch.ops import chol as ch, chol_ls as cl
+    row = None
+    for Bn, n in ((B, N), (3, 200)):
+        K = spd_batch(Bn, n, 4, dev)
+        L = ch.batched_cholesky(K)
+        Lr = ch.batched_cholesky_ref(K)
+        L1 = cl.batched_cholesky_ls(K)[0]
+        torch.cuda.synchronize()
+        err = float((L - Lr).abs().max())
+        rel = err / float(Lr.abs().max())
+        d1 = float((L - L1).abs().max()) / float(Lr.abs().max())
+        print(f"K4 B={Bn} n={n}: max|L-Lref|/max|Lref|={rel:.3e} (tol "
+              f"1e-5), max|L-L_K1|/max|Lref|={d1:.3e} (tol 1e-5)")
+        check(rel < 1e-5 and d1 < 1e-5, "K4 disagrees with plain or K1")
+        check(tuple(L.shape) == (Bn, n, n) and torch.equal(L, torch.tril(L)),
+              "K4 output is not tril (B, n, n)")
+        if (Bn, n) == (B, N):
+            row = dict(err=err,
+                       ms=median_ms(lambda: ch.batched_cholesky(K)),
+                       plain=median_ms(lambda: ch.batched_cholesky_ref(K)))
+            print(f"time K4 B={B} n={N}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain']:.4f} ms (median of 20)")
+
+    K = spd_batch(B, N, 5, dev)
+    torch.cuda.synchronize()
+    cl.reset_launches()
+    L = ops.batched_cholesky(K)
+    torch.cuda.synchronize()
+    launches = dict(cl.LAUNCHES)
+    K64 = K.double()
+    res = float(torch.linalg.norm(L.double() @ L.double().mT - K64) /
+                torch.linalg.norm(K64))
+    print(f"K4 path ops.batched_cholesky B={B} n={N}: launches {launches}, "
+          f"|LL'-K|/|K| = {res:.3e} (tol 1e-6)")
+    check(launches["K4"] >= 1, "K4 never launched on its path")
+    check(res < 1e-6, "ops.batched_cholesky does not factor K")
+    return row, launches["K4"]
+
+
+def scaling_rows(dev):
+    """Factor-only rows as bench.py's kernel-scaling rows:
+    TFLOP/s = B n^3 / 3 / t for K1, K4 and the plain version."""
+    from kvxopt_tpu_torch.ops import chol as ch, chol_ls as cl
+    for Bn, n in ((16, 1024), (8, 2048), (2, 4096)):
+        K = spd_batch(Bn, n, 6, dev)
+        Lr = ch.batched_cholesky_ref(K)
+        L4 = ch.batched_cholesky(K)
+        torch.cuda.synchronize()
+        rel = float((L4 - Lr).abs().max() / Lr.abs().max())
+        check(rel < 1e-4, f"K4 disagrees with plain at B={Bn} n={n}")
+        del L4, Lr
+        flop = Bn * n ** 3 / 3
+        t = {"K1": median_ms(lambda: cl.batched_cholesky_ls(K), 10),
+             "K4": median_ms(lambda: ch.batched_cholesky(K), 10),
+             "plain": median_ms(lambda: ch.batched_cholesky_ref(K), 10)}
+        print(f"scaling B={Bn} n={n}: " + ", ".join(
+            f"{k} {v:.4f} ms ({flop / v / 1e9:.3f} TFLOP/s)"
+            for k, v in t.items()) +
+            f" (median of 10; K4 vs plain {rel:.2e})", flush=True)
+
+
+def residuals(P, q, G, h, x, s, z, A=None, b=None, y=None):
+    """Relative stationarity, Gx+s=h and (with A) Ax=b residuals."""
     rd = np.einsum("bij,bj->bi", P, x) + q + np.einsum("bji,bj->bi", G, z)
+    if A is not None:
+        rd = rd + np.einsum("bji,bj->bi", A, y)
     rp = np.einsum("bij,bj->bi", G, x) + s - h
-    return (np.linalg.norm(rd, axis=1) / (1 + np.linalg.norm(q, axis=1)),
-            np.linalg.norm(rp, axis=1) / (1 + np.linalg.norm(h, axis=1)))
+    out = [np.linalg.norm(rd, axis=1) / (1 + np.linalg.norm(q, axis=1)),
+           np.linalg.norm(rp, axis=1) / (1 + np.linalg.norm(h, axis=1))]
+    if A is not None:
+        ra = np.einsum("bij,bj->bi", A, x) - b
+        out.append(np.linalg.norm(ra, axis=1) /
+                   (1 + np.linalg.norm(b, axis=1)))
+    return out
 
 
-def phase2(dev, data):
-    from kvxopt_tpu_torch import ConeDims
+def solve_phase(name, dev, dims, data):
+    """The two-pass mixed driver on the card, its counts set to 0 just
+    before the solve and read just after."""
+    from kvxopt_tpu_torch import cones
     from kvxopt_tpu_torch.convert import problem_to_torch, state_to_numpy
     from kvxopt_tpu_torch.ops import chol_ls as cl
     from kvxopt_tpu_torch.parallel import batched_qp_solver_mixed
-    solve = batched_qp_solver_mixed(ConeDims(l=M))
+    eq = len(data) == 6
+    solve = batched_qp_solver_mixed(dims, with_eq=eq)
     args = problem_to_torch(*data, device=dev, dtype=torch.float64)
     torch.cuda.synchronize()
     cl.reset_launches()
     out = solve(*args)
     torch.cuda.synchronize()
     launches = dict(cl.LAUNCHES)
+    shapes = dict(cl.LAUNCH_SHAPES)
     pass2 = solve.stats["pass2_lanes"]
     x, y, s, z, it, status, m = state_to_numpy(out)
-    print(f"slice B={B} n={N} m={M}: status {status.tolist()}, "
-          f"iterations {it.tolist()}, lanes re-solved in pass 2: {pass2}")
-    print(f"slice launches during the solve: {launches}")
-    check((status == 1).all(), "not every lane optimal")
-    rd, rp = residuals(*data, x, s, z)
-    print(f"slice max stationarity residual {rd.max():.3e}, "
-          f"max primal residual {rp.max():.3e} (tol 1e-6)")
-    check(rd.max() < 1e-6 and rp.max() < 1e-6, "KKT residuals too large")
-    check(all(v > 0 for v in launches.values()), "a kernel never launched")
+    print(f"{name}: status {status.tolist()}, iterations {it.tolist()}, "
+          f"lanes re-solved in pass 2: {pass2}")
+    print(f"{name} pass-1 status {solve.stats['pass1_status']}")
+    print(f"{name} launches during the solve: {launches}")
+    print(f"{name} launches by (kernel, n, k): "
+          f"{sorted(shapes.items())}")
+    check((status == 1).all(), f"{name}: not every lane optimal")
+    res = residuals(*data[:4], x, s, z, *(data[4:] + (y,) if eq else ()))
+    names = ["stationarity", "Gx+s=h", "Ax=b"]
+    print(f"{name} max residuals: " + ", ".join(
+        f"{k} {r.max():.3e}" for k, r in zip(names, res)) + " (tol 1e-6)")
+    check(all(r.max() < 1e-6 for r in res), f"{name}: residuals too large")
+    ts_, tz_ = cones.max_step2(dims, out[2], out[3])
+    print(f"{name} max_step(s) {float(ts_.max()):.3e}, max_step(z) "
+          f"{float(tz_.max()):.3e} (<= 0: in the cone)")
+    check(bool((ts_ <= 0).all() and (tz_ <= 0).all()),
+          f"{name}: s or z outside the cone")
+    check(all(launches[k] > 0 for k in ("K1", "K2", "K3")),
+          f"{name}: a kernel of the path never launched")
     ts = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -224,31 +355,28 @@ def phase2(dev, data):
         solve(*args)
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
-    print(f"slice wall time: median {np.median(ts):.4f} s over 3 warm "
+    print(f"{name} wall time: median {np.median(ts):.4f} s over 3 warm "
           f"batch solves {['%.4f' % t for t in ts]}, mean iterations "
           f"{it.mean():.2f}")
-    print(f"slice pass-1 status {solve.stats['pass1_status']}")
-    breakdown(args)
-    return (x, it, status), launches
+    breakdown(name, dims, args)
+    return (x, it, status), launches, shapes
 
 
-def breakdown(args):
+def breakdown(name, dims, args):
     """Each pass alone on all lanes, and the device's share of pass 1."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from kvxopt_tpu_torch import ConeDims
     from kvxopt_tpu_torch.parallel import batched_qp_solver
     from kvxopt_tpu_torch.solvers.coneprog import Options
-    fast = batched_qp_solver(ConeDims(l=M), "chol2_mixed_nofb",
-                             Options(ozaki=True))
-    slow = batched_qp_solver(ConeDims(l=M), "chol2")
-    for name, fn in (("pass 1 chol2_mixed_nofb", fast),
-                     ("pass 2 chol2 (f64)", slow)):
+    fast = batched_qp_solver(dims, "chol2_mixed_nofb", Options(ozaki=True))
+    slow = batched_qp_solver(dims, "chol2")
+    for pname, fn in (("pass 1 chol2_mixed_nofb", fast),
+                      ("pass 2 chol2 (f64)", slow)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
-        print(f"breakdown {name} on all {B} lanes: "
+        print(f"{name} breakdown {pname} on all {B} lanes: "
               f"{time.perf_counter() - t0:.4f} s, iterations "
               f"{out[4].tolist()}, status {out[5].tolist()}")
     with profile(activities=[ProfilerActivity.CPU,
@@ -261,53 +389,78 @@ def breakdown(args):
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     if busy == 0:
-        print("profile pass 1: device time not measured (no device events)")
+        print(f"{name} profile pass 1: device time not measured (no device "
+              "events)")
         return
-    print(f"profile pass 1 (profiler on): wall {wall:.4f} s, device busy "
-          f"{busy:.4f} s ({100 * busy / wall:.1f}%), {len(kern)} kernels")
+    print(f"{name} profile pass 1 (profiler on): wall {wall:.4f} s, device "
+          f"busy {busy:.4f} s ({100 * busy / wall:.1f}%), {len(kern)} "
+          "kernels")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
 
 
-def phase3(data, gpu):
-    from kvxopt_tpu_torch import ConeDims
+def cpu_phase(name, dims, data, gpu):
+    """The same problems on CPU tensors: the kernels' plain versions."""
     from kvxopt_tpu_torch.convert import problem_to_torch, state_to_numpy
     from kvxopt_tpu_torch.parallel import batched_qp_solver_mixed
     # facref explicit: on the card the "vmap" default resolves it on
-    solve = batched_qp_solver_mixed(ConeDims(l=M), {"facref": True})
+    solve = batched_qp_solver_mixed(dims, {"facref": True},
+                                    with_eq=len(data) == 6)
     t0 = time.perf_counter()
     out = state_to_numpy(solve(*problem_to_torch(*data)))
     x, it, status = out[0], out[4], out[5]
     xg, itg, stg = gpu
     dx = np.linalg.norm(xg - x, axis=1) / (1 + np.linalg.norm(x, axis=1))
-    print(f"cpu plain path: {time.perf_counter() - t0:.1f} s, status "
+    print(f"{name} cpu plain path: {time.perf_counter() - t0:.1f} s, status "
           f"{status.tolist()}, iterations {it.tolist()}, max "
-          f"|x_gpu-x_cpu|/(1+|x_cpu|) {dx.max():.3e} (tol 1e-6)")
-    check((status == stg).all(), "status differs from the CPU plain path")
-    check((np.abs(it - itg) <= 1).all(), "iterations differ by more than 1")
-    check(dx.max() <= 1e-6, "x differs from the CPU plain path")
+          f"|x_gpu-x_cpu|/(1+|x_cpu|) {dx.max():.3e} (tol 1e-6)", flush=True)
+    check((status == stg).all(), f"{name}: status differs from the CPU "
+          "plain path")
+    check((np.abs(it - itg) <= 1).all(), f"{name}: iterations differ by "
+          "more than 1")
+    check(dx.max() <= 1e-6, f"{name}: x differs from the CPU plain path")
 
 
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
+    from kvxopt_tpu_torch import ConeDims
     dev = torch.device("cuda:0")
     phase0()
     rows = phase1(dev)
+    rows["K4"], k4_launches = phase2(dev)
+    scaling_rows(dev)
+
+    dims = ConeDims(l=M)
     data = tuple(np.stack(a) for a in zip(*(large_problem(s)
                                              for s in SEEDS)))
-    gpu, launches = phase2(dev, data)
-    phase3(data, gpu)
+    gpu, _, _ = solve_phase("slice", dev, dims, data)
+    cpu_phase("slice", dims, data, gpu)
+
+    dims_eq = ConeDims(l=L_EQ, q=Q_EQ)
+    data_eq = tuple(np.stack(a) for a in zip(*(lqeq_problem(s)
+                                                for s in SEEDS)))
+    gpu_eq, launches, shapes = solve_phase("slice l+q+eq", dev, dims_eq,
+                                           data_eq)
+    check(shapes.get(("K1", P_EQ, 0), 0) > 0,
+          "K1 never factored the Schur complement (n=p)")
+    check(shapes.get(("K2", N, P_EQ), 0) > 0,
+          "K2 never ran with k=p right-hand sides")
+    cpu_phase("slice l+q+eq", dims_eq, data_eq, gpu_eq)
+
+    launches["K4"] = k4_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",
                 "K2": "kvxopt_tpu/ops/chol_ls.py:517",
-                "K3": "kvxopt_tpu/ops/chol_ls.py:592"}
+                "K3": "kvxopt_tpu/ops/chol_ls.py:592",
+                "K4": "kvxopt_tpu/ops/chol.py:139"}
+    sources = {k: "kvxopt_tpu_torch/csrc/chol_ls.cu" for k in replaces}
+    sources["K4"] = "kvxopt_tpu_torch/csrc/chol.cu"
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda",
-         "source": "kvxopt_tpu_torch/csrc/chol_ls.cu",
+        {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
-         "plain_ms": rows[k]["plain"]} for k in ("K1", "K2", "K3")]}))
+         "plain_ms": rows[k]["plain"]} for k in replaces]}))
     print(sh(["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cones import ConeDims
+from .cones import ConeDims, NTScaling, block_groups
 from .solvers.coneprog import Metrics, Options
 
 
@@ -34,10 +34,41 @@ def options_from(obj) -> Options:
     return Options(**d)
 
 
-def problem_to_torch(P, q, G, h, device="cpu", dtype=torch.float64):
-    """numpy (or array-like) problem data -> tensors on `device`."""
+def problem_to_torch(*arrays, device="cpu", dtype=torch.float64):
+    """numpy (or array-like) problem data, (P, q, G, h) or
+    (P, q, G, h, A, b) -> tensors on `device`."""
     return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
-                 for a in (P, q, G, h))
+                 for a in arrays)
+
+
+def scaling_from_jax(dims, d, beta, v, device="cpu", dtype=torch.float64):
+    """The port's NTScaling from the JAX package's fields, each with a
+    leading batch axis (as jax.vmap returns them): d (B, l), beta a tuple
+    of (B,) per q block, v a tuple of (B, m) per q block.  The port keeps
+    beta and v per group of equal-size blocks."""
+    dims = dims_from(dims)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    groups = block_groups(dims)[0]
+    return NTScaling(
+        d=t(d),
+        beta=tuple(t(np.stack([np.asarray(beta[k]) for k in g.idxs], 1))
+                   for g in groups),
+        v=tuple(t(np.stack([np.asarray(v[k]) for k in g.idxs], 1))
+                for g in groups))
+
+
+def scaling_to_jax(dims, W):
+    """(d, beta, v) of the port's NTScaling in the JAX package's layout,
+    numpy with a leading batch axis: beta and v one entry per q block."""
+    dims = dims_from(dims)
+    beta, v = [None] * len(dims.q), [None] * len(dims.q)
+    for gi, g in enumerate(block_groups(dims)[0]):
+        for j, k in enumerate(g.idxs):
+            beta[k] = W.beta[gi][:, j].cpu().numpy()
+            v[k] = W.v[gi][:, j].cpu().numpy()
+    return W.d.cpu().numpy(), tuple(beta), tuple(v)
 
 
 def state_to_numpy(out):

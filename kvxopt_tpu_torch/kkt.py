@@ -7,12 +7,14 @@ Counterpart of kvxopt_tpu/kkt.py.  A strategy is
         -> solve(bx, by, bz) -> (ux, uy, uz)
 
 solving the scaled Newton system of the JAX package for every lane of a
-batch at once: G is (B, m, n), P (B, n, n), the right-hand sides (B, .).
+batch at once: G is (B, m, n), A (B, p, n), P (B, n, n), the right-hand
+sides (B, .).
 
 Ported: the condensed normal-equations strategy `chol2` and its
 mixed-precision forms `chol2_mixed` / `chol2_mixed_nofb` (f32 factor on
-kernel K1, f64 refinement).  The other strategies and equality
-constraints (p > 0) raise NotImplementedError (ROADMAP.md, Queue 1).
+kernel K1, f64 refinement), each with a Schur complement over A when
+p > 0, and the null-space strategies `chol` and `qr`.  `ldl` and `ldl2`
+raise NotImplementedError (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from .ops.ozaki import OzakiOperator, ata
 
 STRATEGIES = ("ldl", "ldl2", "chol", "chol2", "qr", "chol2_mixed",
               "chol2_mixed_nofb")
-PORTED = ("chol2", "chol2_mixed", "chol2_mixed_nofb")
+PORTED = ("chol", "chol2", "qr", "chol2_mixed", "chol2_mixed_nofb")
 
 
 def _mv(M, x):
@@ -46,6 +48,12 @@ def _eye_like(K):
     return torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
 
 
+def _trsv(M, b, upper):
+    """Batched triangular solve M x = b for b (B, k)."""
+    return torch.linalg.solve_triangular(M, b[..., None],
+                                         upper=upper)[..., 0]
+
+
 def make_kkt_solver(name, dims: ConeDims, G, A=None, P=None, mnl: int = 0,
                     reg: float = 0.0, ozaki=None, facref=None):
     """ozaki / facref: None follows config.ozaki_refine /
@@ -59,20 +67,18 @@ def make_kkt_solver(name, dims: ConeDims, G, A=None, P=None, mnl: int = 0,
         raise NotImplementedError(
             f"kktsolver {name!r} is not ported yet; kvxopt_tpu_torch has "
             f"{PORTED} (ROADMAP.md, Queue 1)")
-    cones.require_l_only(dims)
-    if A is not None and A.shape[-2]:
-        raise NotImplementedError(
-            "equality constraints (p > 0) are not ported yet "
-            "(ROADMAP.md, Queue 1)")
+    cones.require_no_s(dims)
+    if A is None:
+        A = G.new_zeros((G.shape[0], 0, G.shape[-1]))
     edims = dims.with_extra_l(mnl) if mnl else dims
-    fn = {"chol2": _kkt_chol2,
+    fn = {"chol2": _kkt_chol2, "chol": _kkt_chol, "qr": _kkt_qr,
           "chol2_mixed": partial(_kkt_chol2_mixed, ozaki=ozaki,
                                  facref=facref),
           # without the per-lane f64-factor fallback; batch drivers pair
           # it with an all-f64 re-solve of the lanes that failed
           "chol2_mixed_nofb": partial(_kkt_chol2_mixed, fallback=False,
                                       ozaki=ozaki, facref=facref)}[name]
-    return partial(fn, dims, edims, G, P, mnl, reg)
+    return partial(fn, dims, edims, G, A, P, mnl, reg)
 
 
 def _geff(G, Df, mnl):
@@ -110,6 +116,11 @@ def _chol_solve(L, b):
     return chol_solve_ls_ref(L, None, b)
 
 
+def _spd_chol(K, reg):
+    L = _chol_spd(K, reg)
+    return lambda b: _chol_solve(L, b)
+
+
 def _empty_y(bx):
     return torch.zeros((bx.shape[0], 0), dtype=bx.dtype, device=bx.device)
 
@@ -118,20 +129,41 @@ def _empty_y(bx):
 # chol2 — condensed normal equations (reference misc.py:1352 kkt_chol2)
 # ---------------------------------------------------------------------------
 
-def _kkt_chol2(dims, edims, G, P, mnl, reg, W, H=None, Df=None):
-    """Eliminate uz, factor K = P + H + Gs'Gs (Gs = W^{-T} Geff)."""
-    Geff = _geff(G, Df, mnl)
-    Gs = cones.wtw_scale_cols(edims, W, Geff)
-    K = _keff(P, H, G) + Gs.transpose(-1, -2) @ Gs
-    L = _chol_spd(K, reg)
+def _condensed_solve(edims, W, Gs, A, ksolve, spd_solver):
+    """The Newton-system solve of the condensed strategies: uz eliminated,
+    K^{-1} applied by ksolve, and with p > 0 the Schur complement
+    S = A K^{-1} A' (K^{-1} A' one ksolve with p right-hand sides) solved
+    by spd_solver(S)."""
+    p = A.shape[-2]
+    if p:
+        KiAt = ksolve(A.transpose(-1, -2))
+        ssolve = spd_solver(A @ KiAt)
 
     def solve(bx, by, bz):
         bzs = cones.scale(edims, W, bz, trans=True, inverse=True)
-        ux = _chol_solve(L, bx + _tmv(Gs, bzs))
+        f = bx + _tmv(Gs, bzs)
+        if p:
+            Kif = ksolve(f)
+            uy = ssolve(_mv(A, Kif) - by)
+            ux = Kif - _mv(KiAt, uy)
+        else:
+            ux = ksolve(f)
+            uy = _empty_y(bx)
+        # uz = (W'W)^{-1} (Geff ux - bz) = W^{-1} (Gs ux - W^{-T} bz)
         uz = cones.scale(edims, W, _mv(Gs, ux) - bzs, inverse=True)
-        return ux, _empty_y(bx), uz
+        return ux, uy, uz
 
     return solve
+
+
+def _kkt_chol2(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
+    """Eliminate uz, factor K = P + H + Gs'Gs (Gs = W^{-T} Geff), then a
+    Schur complement S = A K^{-1} A' over the equality constraints."""
+    Geff = _geff(G, Df, mnl)
+    Gs = cones.wtw_scale_cols(edims, W, Geff)
+    K = _keff(P, H, G) + Gs.transpose(-1, -2) @ Gs
+    return _condensed_solve(edims, W, Gs, A, _spd_chol(K, reg),
+                            lambda S: _spd_chol(S, reg))
 
 
 # ---------------------------------------------------------------------------
@@ -159,14 +191,16 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
     measured refinement contraction says f32 carries too little
     information.
 
-    - kmul(x): exact (f64) product with the SPD matrices, x (B, n);
+    - kmul(X): exact (f64) product with the SPD matrices, X (B, n, k);
     - K32: the (B, n, n) f32 matrices to factor;
     - k64_build(): the dense f64 matrices, built only if a lane falls
       back;
     - keq64_build(dsc): the equilibrated f64 matrices to ~1e-12, for the
       one-shot factor refinement (None: off).
 
-    Returns ksolve(b) for b (B, n); with the fallback, ksolve.bad is the
+    Returns ksolve(b) for b (B, n), or (B, n, k) for k right-hand sides
+    solved at once, each column refined on its own as the JAX package's
+    vmap over columns refines it; with the fallback, ksolve.bad is the
     (B,) mask of lanes that took it."""
     eps64 = torch.finfo(dtype).eps
     dsc32 = 1.0 / torch.sqrt(torch.clamp(
@@ -174,6 +208,7 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
     Keq32 = K32 * dsc32[:, :, None] * dsc32[:, None, :]
     L32 = _chol_spd(Keq32, 0.0)
     dsc = dsc32.to(dtype)
+    dsc3 = dsc[:, :, None]
 
     D32 = L0m = None
     if keq64_build is not None:
@@ -194,26 +229,28 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
             torch.diagonal(F, dim1=-2, dim2=-1))
         D32 = L0m @ Phi
 
-    def m_apply(r):
-        # approximate K^{-1} r through the equilibrated f32 factor
-        r32 = (dsc * r).to(K32.dtype)
+    def m_apply(R):
+        # approximate K^{-1} R through the equilibrated f32 factor
+        R32 = (dsc3 * R).to(K32.dtype)
         if D32 is None:
-            return dsc * _chol_solve(L32, r32).to(dtype)
-        u = _chol_solve(L32, r32)
-        w = _mv(D32, _tmv(L0m, u)) + _mv(L0m, _tmv(D32, u))
-        z = u - _chol_solve(L32, w)
-        return dsc * z.to(dtype)
+            return dsc3 * _chol_solve(L32, R32).to(dtype)
+        U = _chol_solve(L32, R32)
+        Wd = D32 @ (L0m.transpose(-1, -2) @ U) + L0m @ (
+            D32.transpose(-1, -2) @ U)
+        Z = U - _chol_solve(L32, Wd)
+        return dsc3 * Z.to(dtype)
 
-    def norm(v):
-        return torch.linalg.vector_norm(v, dim=-1)
+    def norm(V):
+        return torch.linalg.vector_norm(V, dim=-2)
 
-    def dot(u, v):
-        return torch.sum(u * v, dim=-1)
+    def dot(U, V):
+        return torch.sum(U * V, dim=-2)
 
     def solve32(b):
-        # Preconditioned CG on K x = b, the f32 factor as preconditioner.
-        # Lanes iterate until their own exit holds; a finished lane's
-        # carry is frozen, as in a vmapped lax.while_loop.
+        # Preconditioned CG on K X = b, the f32 factor as preconditioner,
+        # for b (B, n, k).  Each (lane, column) iterates until its own
+        # exit holds; a finished one's carry is frozen, as in a vmapped
+        # lax.while_loop.
         bn = norm(b)
         tol = rtol_factor * eps64 * torch.clamp(bn, min=1e-300)
         x = m_apply(b)
@@ -259,17 +296,24 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
             since = torch.where(live, since_, since)
             k = torch.where(live, k + 1, k)
 
+    def columns(solve3):
+        def ksolve(b):
+            if b.ndim == 2:
+                return solve3(b[:, :, None])[:, :, 0]
+            return solve3(b)
+        return ksolve
+
     if not fallback:
-        return solve32
+        return columns(solve32)
 
     # probe the actual refinement contraction rate per lane
-    b0 = dsc / norm(dsc)[:, None]
+    b0 = dsc3 / norm(dsc3)[:, None]
     x0 = m_apply(b0)
     r0 = b0 - kmul(x0)
     x1 = x0 + m_apply(r0)
     r1 = b0 - kmul(x1)
-    n0 = norm(r0)
-    n1 = norm(r1)
+    n0 = norm(r0)[:, 0]
+    n1 = norm(r1)[:, 0]
     contr = n1 / torch.clamp(n0, min=1e-300)
     bad = (~torch.isfinite(contr)) | (contr > 0.5) | (~torch.isfinite(n0))
 
@@ -277,10 +321,8 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
     # it only then
     L64 = cholesky_nan(k64_build()) if bool(bad.any()) else None
 
-    def ksolve(b):
-        return cond_any(bad, lambda v: chol_solve_ls_ref(L64, None, v),
-                        solve32, b)
-
+    ksolve = columns(lambda b: cond_any(
+        bad, lambda v: chol_solve_ls_ref(L64, None, v), solve32, b))
     ksolve.bad = bad
     return ksolve
 
@@ -288,7 +330,9 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
 def mixed_spd_solver(K, reg=0.0, cdt=None, max_refine=30,
                      rtol_factor=50.0, fallback=True, ozaki=None,
                      facref=None):
-    """Dense-matrix wrapper around `_mixed_core` for a batch K (B, n, n)."""
+    """Dense-matrix wrapper around `_mixed_core` for a batch K (B, n, n)
+    (the Schur complements of the mixed strategies, and standalone SPD
+    solves)."""
     cdt = cdt or config.compute_dtype
     if reg:
         K = K + reg * _eye_like(K)
@@ -297,10 +341,10 @@ def mixed_spd_solver(K, reg=0.0, cdt=None, max_refine=30,
     if facref is None:
         facref = config.factor_refine
     if ozaki:
-        kmul = OzakiOperator(K).mv
+        kmul = OzakiOperator(K).mm
     else:
-        def kmul(x):
-            return _mv(K, x)
+        def kmul(X):
+            return K @ X
     keq = None
     if facref:
         def keq(dsc):
@@ -309,11 +353,13 @@ def mixed_spd_solver(K, reg=0.0, cdt=None, max_refine=30,
                        rtol_factor, fallback, keq64_build=keq)
 
 
-def _kkt_chol2_mixed(dims, edims, G, P, mnl, reg, W, H=None, Df=None,
+def _kkt_chol2_mixed(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None,
                      fallback=True, ozaki=None, facref=None):
     """Condensed normal equations with the mixed-precision SPD solver:
     K = P + Gs'Gs formed and factored in f32, f64 work limited to
-    operator products inside the refinement loop."""
+    operator products inside the refinement loop.  With p > 0, K^{-1} A'
+    is one solve with p right-hand sides and the Schur complement
+    S = A K^{-1} A' gets a mixed-precision solver of its own."""
     cdt = config.compute_dtype
     Geff = _geff(G, Df, mnl)
     Gs = cones.wtw_scale_cols(edims, W, Geff)
@@ -326,27 +372,23 @@ def _kkt_chol2_mixed(dims, edims, G, P, mnl, reg, W, H=None, Df=None,
         ozaki = config.ozaki_refine
     if ozaki:
         gop = OzakiOperator(Gs)
-        pop = OzakiOperator(P) if P is not None else None
-        hop = OzakiOperator(H) if H is not None else None
+        ops = [OzakiOperator(M) for M in (P, H) if M is not None]
 
-        def kmul(x):
-            out = gop.normal_mv(x)
-            if pop is not None:
-                out = out + pop.mv(x)
-            if hop is not None:
-                out = out + hop.mv(x)
+        def kmul(X):
+            out = gop.normal_mm(X)
+            for op in ops:
+                out = out + op.mm(X)
             if reg:
-                out = out + reg * x
+                out = out + reg * X
             return out
     else:
-        def kmul(x):
-            out = _tmv(Gs, _mv(Gs, x))
-            if P is not None:
-                out = out + _mv(P, x)
-            if H is not None:
-                out = out + _mv(H, x)
+        def kmul(X):
+            out = Gs.transpose(-1, -2) @ (Gs @ X)
+            for M in (P, H):
+                if M is not None:
+                    out = out + M @ X
             if reg:
-                out = out + reg * x
+                out = out + reg * X
             return out
 
     def k64_build():
@@ -373,11 +415,65 @@ def _kkt_chol2_mixed(dims, edims, G, P, mnl, reg, W, H=None, Df=None,
 
     ksolve = _mixed_core(kmul, Kx32, G.dtype, k64_build,
                          fallback=fallback, keq64_build=keq64_build)
+    return _condensed_solve(
+        edims, W, Gs, A, ksolve,
+        lambda S: mixed_spd_solver(S, reg, fallback=fallback, ozaki=ozaki,
+                                   facref=facref))
+
+
+# ---------------------------------------------------------------------------
+# chol / qr — null-space method (reference misc.py:1213 kkt_chol)
+# ---------------------------------------------------------------------------
+
+def _nullspace(A):
+    """Full QR of A' -> (Q1 (B,n,p), Q2 (B,n,n-p), R1 (B,p,p))."""
+    p = A.shape[-2]
+    Q, R = torch.linalg.qr(A.transpose(-1, -2), mode="complete")
+    return Q[..., :p], Q[..., p:], R[..., :p, :p]
+
+
+def _kkt_nullspace(dims, edims, G, A, P, mnl, reg, W, H, Df, spd_solver):
+    """Common null-space elimination: x = Q1 w + Q2 v with A' = Q R."""
+    p = A.shape[-2]
+    Geff = _geff(G, Df, mnl)
+    Gs = cones.wtw_scale_cols(edims, W, Geff)
+    K = _keff(P, H, G) + Gs.transpose(-1, -2) @ Gs
+    if p:
+        Q1, Q2, R1 = _nullspace(A)
+        solve_red = spd_solver(Q2.transpose(-1, -2) @ K @ Q2, reg)
+    else:
+        solve_full = spd_solver(K, reg)
 
     def solve(bx, by, bz):
         bzs = cones.scale(edims, W, bz, trans=True, inverse=True)
-        ux = ksolve(bx + _tmv(Gs, bzs))
+        f = bx + _tmv(Gs, bzs)
+        if p:
+            Q1w = _mv(Q1, _trsv(R1.transpose(-1, -2), by, upper=False))
+            v = solve_red(_tmv(Q2, f - _mv(K, Q1w)))
+            ux = Q1w + _mv(Q2, v)
+            uy = _trsv(R1, _tmv(Q1, f - _mv(K, ux)), upper=True)
+        else:
+            ux = solve_full(f)
+            uy = _empty_y(bx)
         uz = cones.scale(edims, W, _mv(Gs, ux) - bzs, inverse=True)
-        return ux, _empty_y(bx), uz
+        return ux, uy, uz
 
     return solve
+
+
+def _spd_qr(K, reg):
+    # QR of the (symmetric PSD) reduced matrix: more robust than Cholesky
+    # for nearly singular K
+    if reg:
+        K = K + reg * _eye_like(K)
+    Q, R = torch.linalg.qr(K)
+    return lambda b: _trsv(R, _tmv(Q, b), upper=True)
+
+
+def _kkt_chol(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
+    return _kkt_nullspace(dims, edims, G, A, P, mnl, reg, W, H, Df,
+                          _spd_chol)
+
+
+def _kkt_qr(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
+    return _kkt_nullspace(dims, edims, G, A, P, mnl, reg, W, H, Df, _spd_qr)

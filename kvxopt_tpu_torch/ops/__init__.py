@@ -1,11 +1,13 @@
-"""Compute kernels for the hot path: batched block Cholesky (K1) and the
-triangular solves against it (K2, K3), hand-written CUDA for Hopper with
-a plain PyTorch version beside each (ops/chol_ls.py)."""
+"""Compute kernels for the hot path: batched block Cholesky with
+diagonal-block inverses (K1) and the triangular solves against it (K2,
+K3), and the L-only batched Cholesky (K4); hand-written CUDA for Hopper
+with a plain PyTorch version beside each (ops/chol_ls.py, ops/chol.py)."""
 
 import torch
 
+from .chol import batched_cholesky, cholesky_kernel_available  # noqa: F401
 from .chol_ls import (LAUNCHES, batched_cholesky_ls,  # noqa: F401
-                      chol_solve_ls, tri_solve_ls)
+                      chol_solve_ls, cholesky_ls_available, tri_solve_ls)
 
 
 def _use_ls(A):

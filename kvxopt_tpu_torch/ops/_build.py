@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-At first use the sources in ``kvxopt_tpu_torch/csrc`` are compiled with
-``nvcc`` for Hopper (sm_90a) into a shared library with a plain C
-interface, under ``kvxopt_tpu_torch/build/``, and loaded with ctypes.
-The library's file name carries a hash of the sources and flags, so an
-edited source is rebuilt.  A missing ``nvcc`` or a failed compile
-raises: there is no fallback.
+At first use each source in ``kvxopt_tpu_torch/csrc`` is compiled with
+``nvcc`` for Hopper (sm_90a) into an object, one ``nvcc`` per source and
+all started together, and the objects are linked into a shared library
+with a plain C interface under ``kvxopt_tpu_torch/build/``, loaded with
+ctypes.  The library's file name carries a hash of the sources, headers
+and flags, so an edited source is rebuilt.  A missing ``nvcc`` or a
+failed compile raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
 BUILD_INFO = {"seconds": None, "path": None, "log": ""}
@@ -49,6 +50,34 @@ def _sources():
     return srcs, h.hexdigest()[:16]
 
 
+def _compile(nvcc, srcs, out):
+    """One nvcc per source into objects, run in parallel, then one link."""
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *FLAGS, "-c", "-o", str(o), str(s)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = []
+        for s, p in zip(srcs, procs):
+            _, err = p.communicate()
+            logs.append(err)
+            if p.returncode != 0:
+                for q in procs:
+                    q.kill()
+                    q.wait()
+                raise RuntimeError(f"nvcc failed on {s.name}:\n"
+                                   + err[-8000:])
+        lib = Path(tmp) / "lib.so"
+        proc = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(lib),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + proc.stderr[-8000:])
+        os.replace(lib, out)
+    return "".join(logs)
+
+
 def load_library():
     """The loaded kernel library, building it first if needed."""
     global _LIB
@@ -59,19 +88,7 @@ def load_library():
     t0 = time.perf_counter()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *FLAGS, "-o", tmp, *map(str, srcs)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed:\n" + proc.stderr[-8000:])
-            BUILD_INFO["log"] = proc.stderr
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        BUILD_INFO["log"] = _compile(_nvcc(), srcs, out)
     _LIB = ctypes.CDLL(str(out))
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     BUILD_INFO["path"] = str(out)

@@ -14,14 +14,18 @@ goes to the plain version; a CUDA tensor goes to the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 BS = 128
 
-# Kernel launches per wrapper, counted where the kernel is launched.
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}
+# Kernel launches per wrapper, counted where the kernel is launched (K4's
+# wrapper is ops/chol.py), and the same launches by (kernel, n, k): n the
+# matrix order, k the right-hand sides (0 for a factor).
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+LAUNCH_SHAPES = collections.Counter()
 
 _SMEM_LIMIT = 227 * 1024
 _MODE = {"both": 0, "fwd": 1, "bwd": 2}
@@ -30,6 +34,12 @@ _MODE = {"both": 0, "fwd": 1, "bwd": 2}
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def count_launch(kernel, n, k=0):
+    LAUNCHES[kernel] += 1
+    LAUNCH_SHAPES[(kernel, n, k)] += 1
 
 
 def _lib():
@@ -39,12 +49,19 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.kvx_chol_ls.argtypes = [vp, vp, ci, ci, vp]
         lib.kvx_chol_ls.restype = ci
+        lib.kvx_chol.argtypes = [vp, vp, ci, ci, vp]
+        lib.kvx_chol.restype = ci
         lib.kvx_sweep.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.kvx_sweep.restype = ci
         lib.kvx_sweep_smem.argtypes = [ci, ci]
         lib.kvx_sweep_smem.restype = ci
         lib._kvx_typed = True
     return lib
+
+
+def cholesky_ls_available():
+    """True where kernels K1-K3 can run: a CUDA device is present."""
+    return torch.cuda.is_available()
 
 
 def _on_cpu(*ts):
@@ -137,7 +154,7 @@ def batched_cholesky_ls(A):
     rc = _lib().kvx_chol_ls(O.data_ptr(), Dinv.data_ptr(), B, npad,
                             _stream())
     _raise_on(rc, "batched_cholesky_ls")
-    LAUNCHES["K1"] += 1
+    count_launch("K1", n)
     return torch.tril(O[:, :n, :n]), Dinv
 
 
@@ -147,6 +164,10 @@ def batched_cholesky_ls(A):
 
 def _as3(rhs):
     return (rhs[:, :, None], True) if rhs.ndim == 2 else (rhs, False)
+
+
+def _ncols(rhs):
+    return 1 if rhs.ndim == 2 else rhs.shape[2]
 
 
 def chol_solve_ls_ref(L, Dinv, rhs):
@@ -208,7 +229,7 @@ def chol_solve_ls(L, Dinv, rhs):
     if _on_cpu(L, Dinv, rhs):
         return chol_solve_ls_ref(L, Dinv, rhs)
     x = _sweep(L, Dinv, rhs, "both", "chol_solve_ls")
-    LAUNCHES["K2"] += 1
+    count_launch("K2", L.shape[-1], _ncols(rhs))
     return x
 
 
@@ -218,5 +239,5 @@ def tri_solve_ls(L, Dinv, rhs, trans=False):
     if _on_cpu(L, Dinv, rhs):
         return tri_solve_ls_ref(L, Dinv, rhs, trans)
     x = _sweep(L, Dinv, rhs, "bwd" if trans else "fwd", "tri_solve_ls")
-    LAUNCHES["K3"] += 1
+    count_launch("K3", L.shape[-1], _ncols(rhs))
     return x

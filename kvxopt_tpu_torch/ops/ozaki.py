@@ -50,26 +50,35 @@ def split_fp(A, nslices: int, nbits: int):
     return torch.stack(slices), scale
 
 
-def split_vec(x, nslices: int, nbits: int):
-    """Split contraction vectors; returns (Xs, scale) with Xs of shape
-    x.shape[:-1] + (x.shape[-1], nslices)."""
-    S, scale = split_fp(x, nslices, nbits)
-    return torch.movedim(S, 0, -1), scale
+def matmat(Aslices, Ascale, X, nbits: int):
+    """Y = A @ X to ~f64 accuracy, A given pre-split by split_fp, for k
+    right-hand sides at once: each column of X is split on its own (as a
+    vmap of matvec over columns splits it), and the column slices ride
+    one f32 matmul per A slice.
+
+    Aslices: (s, ..., m, n) f32; Ascale: (..., m, 1) f64; X: (..., n, k)
+    f64.  Returns (..., m, k) f64."""
+    ns = Aslices.shape[0]
+    n, k = X.shape[-2], X.shape[-1]
+    S, xscale = split_fp(torch.swapaxes(X, -1, -2), ns, nbits)
+    # (ns, ..., k, n) -> (..., n, k * ns)
+    Xs = torch.movedim(S, 0, -1).transpose(-3, -2).reshape(
+        X.shape[:-2] + (n, k * ns))
+    acc = None
+    for j in range(ns):
+        Pj = torch.matmul(Aslices[j], Xs)             # (..., m, k*ns) f32
+        term = torch.sum(Pj.to(torch.float64).unflatten(-1, (k, ns)),
+                         dim=-1)
+        acc = term if acc is None else acc + term
+    return acc * Ascale * torch.swapaxes(xscale, -1, -2)
 
 
 def matvec(Aslices, Ascale, x, nbits: int):
-    """y = A @ x to ~f64 accuracy, A given pre-split by split_fp.
+    """y = A @ x to ~f64 accuracy: matmat with one right-hand side.
 
     Aslices: (s, ..., m, n) f32; Ascale: (..., m, 1) f64; x: (..., n)
     f64.  Returns (..., m) f64."""
-    ns = Aslices.shape[0]
-    Xs, xscale = split_vec(x, ns, nbits)
-    acc = None
-    for k in range(ns):
-        Pk = torch.matmul(Aslices[k], Xs)                # (..., m, t) f32
-        term = torch.sum(Pk.to(torch.float64), dim=-1)
-        acc = term if acc is None else acc + term
-    return acc * Ascale[..., 0] * xscale
+    return matmat(Aslices, Ascale, x[..., None], nbits)[..., 0]
 
 
 def ata(A, nbits: int | None = None, target_bits: int = 40):
@@ -112,6 +121,14 @@ class OzakiOperator:
     def normal_mv(self, x):
         """x -> A' A x."""
         return self.rmv(self.mv(x))
+
+    def mm(self, X):
+        """A X for X (..., n, k)."""
+        return matmat(self.S, self.scale, X, self.nbits)
+
+    def normal_mm(self, X):
+        """X -> A' A X for X (..., n, k)."""
+        return matmat(self.St, self.scalet, self.mm(X), self.nbits)
 
 
 def gram_matvec_fn(A, nslices=None, nbits=None):

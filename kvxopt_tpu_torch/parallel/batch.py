@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import kkt
-from ..cones import ConeDims, require_l_only
+from ..cones import ConeDims, require_no_s
 from ..kkt import _mv, _tmv
 from ..solvers.coneprog import OPTIMAL, Options, _coneqp_core
 
@@ -33,44 +33,49 @@ def make_qp_solver(dims, kktsolver=None, options=None, with_eq=False):
     (x, y, s, z, iterations, status, metrics).
 
     The inputs carry a leading batch dimension (P (B,n,n), q (B,n),
-    G (B,m,n), h (B,m)), in place of the JAX package's vmap; a single
-    instance (q of shape (n,)) is solved as a batch of one and returned
-    without the batch dimension, as the JAX function returns it.  The
-    KKT strategy defaults to 'chol2' (the reference coneqp default for
-    orthant-only dims)."""
+    G (B,m,n), h (B,m), A (B,p,n), b (B,p)), in place of the JAX
+    package's vmap; a single instance (q of shape (n,)) is solved as a
+    batch of one and returned without the batch dimension, as the JAX
+    function returns it.  A and b are optional at every call, as in the
+    JAX function, which takes with_eq only for its signature.  The KKT
+    strategy defaults to 'chol' with q cones and 'chol2' otherwise (the
+    reference coneqp default)."""
     dims = ConeDims.from_dict(dims)
-    require_l_only(dims)
-    if with_eq:
-        raise NotImplementedError("equality constraints (with_eq) are not "
-                                  "ported yet (ROADMAP.md, Queue 1)")
+    require_no_s(dims)
     o = _options(options)
     if kktsolver is None:
-        kktsolver = "chol2"
+        kktsolver = "chol" if dims.q else "chol2"
     o = o.resolve_refinement(dims, kktsolver)
 
     def solve(P, q, G, h, A=None, b=None):
-        if A is not None and A.shape[-2]:
-            raise NotImplementedError("equality constraints are not "
-                                      "ported yet (ROADMAP.md, Queue 1)")
         if q.ndim == 1:
-            out = solve(P[None], q[None], G[None], h[None])
+            ab = () if A is None else (A[None], b[None])
+            out = solve(P[None], q[None], G[None], h[None], *ab)
             return (*(a[0] for a in out[:6]),
                     type(out[6])(*(a[0] for a in out[6])))
         dtype, dev = q.dtype, q.device
         # cast everything to q's dtype and device
         P, G, h = (a.to(dtype=dtype, device=dev) for a in (P, G, h))
-        b = torch.zeros((q.shape[0], 0), dtype=dtype, device=dev)
-        factor = kkt.make_kkt_solver(kktsolver, dims, G, None, P,
+        if A is None:
+            A = torch.zeros((q.shape[0], 0, q.shape[1]), dtype=dtype,
+                            device=dev)
+            b = torch.zeros((q.shape[0], 0), dtype=dtype, device=dev)
+        else:
+            A, b = (a.to(dtype=dtype, device=dev) for a in (A, b))
+        factor = kkt.make_kkt_solver(kktsolver, dims, G, A, P,
                                      reg=o.kktreg, ozaki=o.ozaki,
                                      facref=o.facref)
 
         def gmv(v, trans=False):
             return _tmv(G, v) if trans else _mv(G, v)
 
+        def amv(v, trans=False):
+            return _tmv(A, v) if trans else _mv(A, v)
+
         def pmv(v):
             return _mv(P, v)
 
-        return _coneqp_core(q, h, b, dims, o, factor, gmv, pmv)
+        return _coneqp_core(q, h, b, dims, o, factor, gmv, amv, pmv)
 
     return solve
 
@@ -85,7 +90,7 @@ def _vmap_facref(options):
 
 def batched_qp_solver(dims, kktsolver=None, options=None, mesh=None,
                       with_eq=False):
-    """solve(P[B], q[B], G[B], h[B]) -> batched state."""
+    """solve(P[B], q[B], G[B], h[B][, A[B], b[B]]) -> batched state."""
     _no_mesh(mesh)
     return make_qp_solver(dims, kktsolver, _vmap_facref(options), with_eq)
 
@@ -99,8 +104,8 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
     no per-lane f64 fallback.  Pass 2 re-solves exactly the lanes whose
     pass-1 status is not 'optimal' with the all-f64 'chol2' path.
 
-    Returns solve(P, q, G, h) -> (x, y, s, z, iterations, status,
-    metrics) as tensors on the inputs' device.  solve.stats holds the
+    Returns solve(P, q, G, h[, A, b]) -> (x, y, s, z, iterations,
+    status, metrics) as tensors on the inputs' device.  solve.stats holds the
     last call's pass-1 status per lane ("pass1_status") and the number
     of lanes pass 2 re-solved ("pass2_lanes")."""
     _no_mesh(mesh)
@@ -110,14 +115,14 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
     fast = batched_qp_solver(dims, "chol2_mixed_nofb", o, None, with_eq)
     slow = batched_qp_solver(dims, "chol2", options, None, with_eq)
 
-    def solve(P, q, G, h):
-        out = fast(P, q, G, h)
+    def solve(P, q, G, h, *ab):
+        out = fast(P, q, G, h, *ab)
         bad = torch.nonzero(out[5] != OPTIMAL).flatten()
         solve.stats["pass1_status"] = out[5].tolist()
         solve.stats["pass2_lanes"] = int(bad.numel())
         if bad.numel() == 0:
             return out
-        sout = slow(*(a[bad] for a in (P, q, G, h)))
+        sout = slow(*(a[bad] for a in (P, q, G, h, *ab)))
 
         def merge(a, s):
             a = a.clone()

@@ -95,16 +95,15 @@ def _where(mask, a, b):
     return torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
 
 
-def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, pmv):
-    """Batched coneqp driver: q (B, n), h (B, m), b (B, 0), `factor(W)` a
-    KKT strategy over the batch, gmv/pmv batched operator products.
-    Returns the final state (x, y, s, z, iterations, status, metrics)."""
-    cones.require_l_only(dims)
-    if b.shape[-1]:
-        raise NotImplementedError(
-            "equality constraints (p > 0) are not ported yet "
-            "(ROADMAP.md, Queue 1)")
+def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
+                 pmv):
+    """Batched coneqp driver: q (B, n), h (B, m), b (B, p), `factor(W)` a
+    KKT strategy over the batch, gmv/amv/pmv batched operator products
+    (gmv and amv take trans=True for G' and A').  Returns the final
+    state (x, y, s, z, iterations, status, metrics)."""
+    cones.require_no_s(dims)
     B, dtype, dev = q.shape[0], q.dtype, q.device
+    p = b.shape[-1]
     deg = dims.degree
     e = cones.cone_e(dims, dtype, dev)
     def norm(v):
@@ -114,6 +113,7 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, pmv):
         return torch.sum(u * v, dim=-1)
 
     resx0 = torch.clamp(norm(q), min=1.0)
+    resy0 = torch.clamp(norm(b), min=1.0)
     resz0 = torch.clamp(cones.snrm2(dims, h), min=1.0)
 
     def newton(solve, lmbda, W, rx, ry, rz, d_target):
@@ -124,12 +124,17 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, pmv):
         dx, dy, dz = solve(bx, by, bz)
         for _ in range(o.refinement):
             # residuals of the full (unscaled) Newton system
-            r1 = bx - (gmv(dz, trans=True) + pmv(dx))
+            t = pmv(dx)
+            if p:
+                t = amv(dy, trans=True) + t
+            r1 = bx - (gmv(dz, trans=True) + t)
+            r2 = by - amv(dx) if p else by
             wtwdz = cones.scale(dims, W, cones.scale(dims, W, dz),
                                 trans=True)
             r3 = bz - (gmv(dx) - wtwdz)
-            ex, ey, ez = solve(r1, by, r3)
+            ex, ey, ez = solve(r1, r2, r3)
             dx = ex + dx
+            dy = ey + dy if p else dy
             dz = dz + ez
         ds = cones.scale(dims, W, tmp - cones.scale(dims, W, dz),
                          trans=True)
@@ -146,19 +151,24 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, pmv):
                     z0 + (1.0 + tz)[:, None] * e, z0)
         return x0, y0, s0, z0
 
-    def metrics_of(x, s, z):
+    def metrics_of(x, y, s, z):
         rx = pmv(x) + (gmv(z, trans=True) + q)
-        ry = b
+        if p:
+            rx = amv(y, trans=True) + rx
+        ry = amv(x) - b if p else b
         rz = gmv(x) + s - h
         gap = cones.sdot(dims, s, z)
         pcost = 0.5 * dot(x, pmv(x)) + dot(q, x)
-        dcost = pcost + cones.sdot(dims, z, rz) - gap
+        dcost = pcost + (dot(y, ry) if p else 0.0) + \
+            cones.sdot(dims, z, rz) - gap
         pres = torch.clamp(cones.snrm2(dims, rz) / resz0, min=0.0)
+        if p:
+            pres = torch.maximum(norm(ry) / resy0, pres)
         dres = norm(rx) / resx0
         return rx, ry, rz, Metrics(pcost, dcost, gap,
                                    _relgap(gap, pcost, dcost), pres, dres)
 
-    def do_step(x, s, z, rx, ry, rz, m):
+    def do_step(x, y, s, z, rx, ry, rz, m):
         W, lmbda = cones.compute_scaling(dims, s, z)
         solve = factor(W)
         lmbdasq = cones.ssqr(dims, lmbda)
@@ -188,22 +198,23 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, pmv):
             torch.clamp(1.0 / tinv, max=1.0 / STEP)), max=1.0)
 
         xn = step[:, None] * dx + x
+        yn = step[:, None] * dy + y if p else y
         sn = s + step[:, None] * ds
         zn = z + step[:, None] * dz
         bad = ~torch.isfinite(dot(xn, xn) + dot(sn, sn) + dot(zn, zn))
         st = torch.where(bad, SINGULAR, RUNNING).to(torch.int32)
-        return (_where(bad, x, xn), _where(bad, s, sn),
+        return (_where(bad, x, xn), _where(bad, y, yn), _where(bad, s, sn),
                 _where(bad, z, zn), st)
 
     x, y, s, z = initial_point()
-    m = metrics_of(x, s, z)[3]
+    m = metrics_of(x, y, s, z)[3]
     it = torch.zeros((B,), dtype=torch.int32, device=dev)
     status = torch.full((B,), RUNNING, dtype=torch.int32, device=dev)
     if o.show_progress:
         print("     pcost       dcost       gap    pres   dres")
     while bool((status == RUNNING).any()):
         live = status == RUNNING
-        rx, ry, rz, mm = metrics_of(x, s, z)
+        rx, ry, rz, mm = metrics_of(x, y, s, z)
         if o.show_progress:
             for i in torch.nonzero(live).flatten().tolist():
                 print(f"{int(it[i]):2d}: {float(mm.pcost[i]): .4e} "
@@ -217,8 +228,9 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, pmv):
             torch.where(it >= o.maxiters, UNKNOWN, RUNNING)).to(torch.int32)
         stepping = live & (new_status == RUNNING)
         if bool(stepping.any()):
-            xn, sn, zn, st = do_step(x, s, z, rx, ry, rz, mm)
+            xn, yn, sn, zn, st = do_step(x, y, s, z, rx, ry, rz, mm)
             x = _where(stepping, xn, x)
+            y = _where(stepping, yn, y)
             s = _where(stepping, sn, s)
             z = _where(stepping, zn, z)
             new_status = torch.where(stepping, st, new_status)

@@ -1,4 +1,5 @@
-"""Kernels K1/K2/K3 of kvxopt_tpu_torch.ops.chol_ls.
+"""Kernels K1/K2/K3 of kvxopt_tpu_torch.ops.chol_ls and K4 of
+kvxopt_tpu_torch.ops.chol.
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 against the JAX package's Pallas kernels run in interpret mode (as
@@ -18,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from kvxopt_tpu_torch.ops import _build, chol_ls as cl
+from kvxopt_tpu_torch import ops
+from kvxopt_tpu_torch.ops import _build, chol as ch, chol_ls as cl
 
 SHAPES = [(2, 128), (2, 200), (3, 256)]
 
@@ -110,6 +112,40 @@ def test_tri_plain_matches_jax(B, n, k, trans):
     assert np.abs(xt - xj).max() / (np.abs(xj).max() + 1) < 1e-4
 
 
+@pytest.mark.parametrize("B,n", [(2, 128), (1, 200), (3, 64)])
+def test_k4_plain_matches_jax(B, n):
+    """K4's plain version against the JAX batched_cholesky in interpret
+    mode, at tests/test_ops.py's shapes (n=200 and n=64 are padded)."""
+    import jax.numpy as jnp
+    from kvxopt_tpu.ops.chol import batched_cholesky as jax_chol
+    K = spd(B, n, seed=0)
+    Lj = np.asarray(jax_chol(jnp.asarray(K), interpret=True))
+    Lt = ch.batched_cholesky(torch.from_numpy(K))
+    assert Lt.shape == Lj.shape == (B, n, n) and Lt.dtype == torch.float32
+    assert np.abs(Lt.numpy() - Lj).max() / np.abs(Lj).max() < 1e-5
+    assert np.array_equal(np.triu(Lt.numpy(), 1), np.zeros_like(Lj))
+
+
+def test_k4_indefinite_lane_gives_nan_on_cpu():
+    L = ch.batched_cholesky(indefinite_pair())
+    assert bool(torch.isfinite(L[0]).all())
+    assert bool(torch.isnan(L[1]).any())
+
+
+def test_ops_exports_match_jax_package():
+    """kvxopt_tpu_torch.ops exports what kvxopt_tpu.ops does for the
+    kernels; without a card neither kernel reports itself available."""
+    for name in ("batched_cholesky", "cholesky_kernel_available",
+                 "cholesky_ls_available", "batched_cholesky_ls",
+                 "chol_solve_ls", "best_cholesky", "best_chol_factor_solve"):
+        assert callable(getattr(ops, name)), name
+    assert ops.cholesky_kernel_available() == torch.cuda.is_available()
+    assert ops.cholesky_ls_available() == torch.cuda.is_available()
+    K = torch.from_numpy(spd(2, 130))
+    torch.testing.assert_close(ops.batched_cholesky(K), ops.best_cholesky(K),
+                               rtol=0, atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # No fallback: the CPU takes the plain path without touching CUDA, and a
 # tensor on any other device raises.
@@ -127,6 +163,19 @@ def test_cpu_wrappers_never_consult_cuda(monkeypatch):
     cl.chol_solve_ls(L, D, torch.ones((2, 130)))
     cl.tri_solve_ls(L, D, torch.ones((2, 130, 3)), trans=True)
     assert cl.LAUNCHES == before
+
+
+def test_k4_cpu_wrapper_never_consults_cuda(monkeypatch):
+    def forbidden(*a, **k):
+        raise AssertionError("CPU path consulted CUDA or the kernels")
+    monkeypatch.setattr(torch.cuda, "is_available", forbidden)
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    monkeypatch.setattr(ch, "_lib", forbidden)
+    before = dict(cl.LAUNCHES)
+    ch.batched_cholesky(torch.from_numpy(spd(2, 130)))
+    assert cl.LAUNCHES == before
+    with pytest.raises(ValueError, match="unsupported or mixed devices"):
+        ch.batched_cholesky(torch.empty((2, 128, 128), device="meta"))
 
 
 def indefinite_pair(n=200):
@@ -216,3 +265,36 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
         cl.chol_solve_ls(L.transpose(1, 2), D, b)
     with pytest.raises(ValueError, match="mixed devices"):
         cl.tri_solve_ls(L, D, b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", SHAPES + [(3, 64), (16, 512)])
+def test_k4_matches_plain_on_card(cuda, B, n):
+    """K4 against its plain version and K1's L (same arithmetic)."""
+    K = torch.from_numpy(spd(B, n)).to(cuda)
+    before = cl.LAUNCHES["K4"]
+    L = ch.batched_cholesky(K)
+    assert cl.LAUNCHES["K4"] == before + 1
+    Lr = ch.batched_cholesky_ref(K)
+    assert L.shape == (B, n, n)
+    assert float((L - Lr).abs().max() / Lr.abs().max()) < 1e-5
+    assert torch.equal(L, torch.tril(L))
+    assert float((L - cl.batched_cholesky_ls(K)[0]).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_k4_indefinite_lane_gives_nan_on_card(cuda):
+    L = ch.batched_cholesky(indefinite_pair().to(cuda))
+    assert bool(torch.isfinite(L[0]).all())
+    assert bool(torch.isnan(L[1]).any())
+
+
+@pytest.mark.cuda
+def test_k4_wrapper_refuses_bad_inputs(cuda):
+    K = torch.from_numpy(spd(2, 128)).to(cuda)
+    with pytest.raises(TypeError):
+        ch.batched_cholesky(K.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ch.batched_cholesky(K.transpose(1, 2))
+    with pytest.raises(ValueError, match="square"):
+        ch.batched_cholesky(K[:, :, :64].contiguous())

@@ -116,13 +116,15 @@ def test_conversions_from_jax_objects():
 
 
 def test_unported_inputs_raise():
+    """q cones and equality constraints are ported
+    (tests/test_torch_slice_eq.py); s cones, mesh sharding and the ldl
+    strategies still raise with a pointer to the roadmap."""
+    tb.make_qp_solver(ConeDims(l=3, q=(3,)), with_eq=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.make_qp_solver(ConeDims(l=3), with_eq=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.make_qp_solver(ConeDims(l=3, q=(3,)))
+        tb.make_qp_solver(ConeDims(l=3, s=(2,)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.batched_qp_solver(ConeDims(l=3), mesh=object())
-    solve = tb.make_qp_solver(ConeDims(l=3))
+    solve = tb.make_qp_solver(ConeDims(l=3), "ldl")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve(*(torch.zeros(s) for s in ((2, 2), (2,), (3, 2), (3,))),
               torch.ones((1, 2)), torch.ones(1))
