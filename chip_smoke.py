@@ -8,10 +8,15 @@ orthant and on orthant + second-order cones + equality constraints.
 
 Phases (any failure exits non-zero and prints no result):
   0. environment and kernel build;
-  1. kernels K1/K2/K3 against their plain versions at the solves' shapes
+  1. kernels K1/K2 against their plain versions at the solves' shapes
      (B=16 n=512, K2 at k=1 and k=p=32, and the Schur complement's
      B=16 n=32) and a padded shape (B=3 n=200), with times, plus the
-     factor + 2 solves headline shape B=16 n=1024;
+     factor + 2 solves headline shape B=16 n=1024; K3 against its plain
+     version in both modes at (B, n, k) = (16,512,512), (2,128,37),
+     (2,200,200), (2,256,300), (16,32,32), with R contiguous, transposed
+     and sliced, then K3 and plain times in both modes at (16,512,512),
+     (16,1024,1024), (16,32,32) in TFLOP/s = B n^2 k / t, and device
+     times from the profiler at (16,512,512);
   2. K4 against its plain version and K1's L at B=16 n=512 and B=3
      n=200, with times; K4 through kvxopt_tpu_torch.ops.batched_cholesky;
      factor-only scaling rows (B, n) = (16,1024), (8,2048), (2,4096) for
@@ -173,35 +178,16 @@ def phase1(dev):
                   f"max|x-xref|={errs2[k]:.3e}")
             check(rel < 1e-5, "K2 residual too large")
 
-        errs3 = {}
-        for trans in (False, True):
-            b = torch.as_tensor(rng.standard_normal((Bn, n, n)).astype(
-                np.float32), device=dev)
-            x = cl.tri_solve_ls(L, Dinv, b, trans=trans)
-            xr = cl.tri_solve_ls_ref(L, Dinv, b, trans=trans)
-            torch.cuda.synchronize()
-            err = float((x - xr).abs().max())
-            rel = err / (float(xr.abs().max()) + 1.0)
-            errs3[trans] = err
-            print(f"K3 B={Bn} n={n} k={n} trans={trans}: "
-                  f"max|x-xref|/(max|xref|+1)={rel:.3e} (tol 1e-4)")
-            check(rel < 1e-4, "K3 disagrees with plain")
-
         if (Bn, n) == (B, N):
             b1 = torch.randn((B, N), device=dev)
-            bw = torch.randn((B, N, N), device=dev)
             t = {
                 "K1": (median_ms(lambda: cl.batched_cholesky_ls(K)),
                        median_ms(lambda: cl.batched_cholesky_ls_ref(K))),
                 "K2": (median_ms(lambda: cl.chol_solve_ls(L, Dinv, b1)),
                        median_ms(lambda: cl.chol_solve_ls_ref(L, Dinv, b1))),
-                "K3": (median_ms(lambda: cl.tri_solve_ls(L, Dinv, bw)),
-                       median_ms(lambda: cl.tri_solve_ls_ref(L, Dinv, bw))),
             }
             rows["K1"] = dict(err=errL, ms=t["K1"][0], plain=t["K1"][1])
             rows["K2"] = dict(err=errs2[1], ms=t["K2"][0], plain=t["K2"][1])
-            rows["K3"] = dict(err=errs3[False], ms=t["K3"][0],
-                              plain=t["K3"][1])
             for k, (a, p) in t.items():
                 print(f"time {k} B={B} n={N}: kernel {a:.4f} ms, "
                       f"plain {p:.4f} ms (median of 20)")
@@ -228,7 +214,100 @@ def phase1(dev):
     a, p = median_ms(fs_kernel), median_ms(fs_plain)
     print(f"time factor+2 solves B={B} n=1024: kernel {a:.4f} ms, "
           f"plain {p:.4f} ms (median of 20)")
+    rows["K3"] = phase1_k3(dev)
     return rows
+
+
+# (B, n, k) where K3's tiling can go wrong: k = n at the factor-refinement
+# shape, ragged k, k > n, the Schur complement's shape
+K3_CHECKS = ((B, N, N), (2, 128, 37), (2, 200, 200), (2, 256, 300),
+             (B, P_EQ, P_EQ))
+K3_TIMES = ((B, N, N), (B, 1024, 1024), (B, P_EQ, P_EQ))
+
+
+def k3_views(b):
+    """R as the solver passes it and as views with other strides: the
+    transposed R of the factor refinement's second solve (kkt.py) and
+    column slices of a wider tensor, 16-byte aligned or not."""
+    Bn, n, k = b.shape
+    out = {"contiguous": b}
+    if n == k:
+        out["transposed"] = b.transpose(1, 2)
+    for ofs in (3, 4):
+        wide = torch.zeros((Bn, n, k + 8), device=b.device)
+        wide[:, :, ofs:ofs + k] = b
+        out[f"slice+{ofs}"] = wide[:, :, ofs:ofs + k]
+    return out
+
+
+def phase1_k3(dev):
+    """K3 against its plain version at K3_CHECKS in both modes and with
+    strided R, then times, TFLOP/s on the B n^2 k count and device times
+    from one profiler window per mode at K3_TIMES."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    rng = np.random.default_rng(7)
+    row = None
+    for Bn, n, k in K3_CHECKS:
+        L, Dinv = cl.batched_cholesky_ls(spd_batch(Bn, n, 8, dev))
+        b = torch.as_tensor(rng.standard_normal((Bn, n, k)).astype(
+            np.float32), device=dev)
+        for trans in (False, True):
+            for view, r in k3_views(b).items():
+                x = cl.tri_solve_ls(L, Dinv, r, trans=trans)
+                xr = cl.tri_solve_ls_ref(L, Dinv, r, trans=trans)
+                torch.cuda.synchronize()
+                check(x.shape == r.shape, "K3 output shape")
+                err = float((x - xr).abs().max())
+                rel = err / (float(xr.abs().max()) + 1.0)
+                print(f"K3 B={Bn} n={n} k={k} trans={trans} R {view}: "
+                      f"max|x-xref|/(max|xref|+1)={rel:.3e} (tol 1e-4)")
+                check(rel < 1e-4, "K3 disagrees with plain")
+                if (Bn, n, k, trans, view) == (B, N, N, False, "contiguous"):
+                    row = dict(err=err)
+
+    for Bn, n, k in K3_TIMES:
+        L, Dinv = cl.batched_cholesky_ls(spd_batch(Bn, n, 9, dev))
+        b = torch.randn((Bn, n, k), device=dev)
+        flop = Bn * n * n * k
+        for trans in (False, True):
+            mode = "bwd" if trans else "fwd"
+            a = median_ms(lambda: cl.tri_solve_ls(L, Dinv, b, trans=trans))
+            p = median_ms(lambda: cl.tri_solve_ls_ref(L, Dinv, b,
+                                                      trans=trans))
+            print(f"time K3 B={Bn} n={n} k={k} {mode}: kernel {a:.4f} ms "
+                  f"({flop / a / 1e9:.3f} TFLOP/s), plain {p:.4f} ms "
+                  f"({flop / p / 1e9:.3f} TFLOP/s) (median of 20; "
+                  "TFLOP/s = B n^2 k / t)")
+            if (Bn, n, k, trans) == (B, N, N, False):
+                row.update(ms=a, plain=p)
+            if (Bn, n, k) != (B, N, N):
+                continue
+            reps = 10
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    cl.tri_solve_ls(L, Dinv, b, trans=trans)
+                for _ in range(reps):
+                    cl.tri_solve_ls_ref(L, Dinv, b, trans=trans)
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            mine = [e for e in kern if "tri_kernel" in e.key]
+            rest = [e for e in kern if "tri_kernel" not in e.key]
+            dk = sum(e.self_device_time_total for e in mine) / reps / 1e3
+            dp = sum(e.self_device_time_total for e in rest) / reps / 1e3
+            if dk == 0 or dp == 0:
+                print(f"profile K3 B={Bn} n={n} k={k} {mode}: device time "
+                      "not measured (no device events)")
+                continue
+            print(f"profile K3 B={Bn} n={n} k={k} {mode}: device {dk:.4f} "
+                  f"ms per call ({flop / dk / 1e9:.3f} TFLOP/s), plain "
+                  f"{dp:.4f} ms ({flop / dp / 1e9:.3f} TFLOP/s) in " +
+                  ", ".join(f"{e.count}x {e.key[:60]}" for e in rest))
+    return row
 
 
 def phase2(dev):
@@ -395,6 +474,11 @@ def breakdown(name, dims, args):
     print(f"{name} profile pass 1 (profiler on): wall {wall:.4f} s, device "
           f"busy {busy:.4f} s ({100 * busy / wall:.1f}%), {len(kern)} "
           "kernels")
+    k3 = [e for e in kern if "tri_kernel" in e.key]
+    k3_s = sum(e.self_device_time_total for e in k3) / 1e6
+    print(f"{name} profile pass 1: K3 {k3_s * 1e3:.2f} ms in "
+          f"{sum(e.count for e in k3)} launches, {100 * k3_s / busy:.2f}% "
+          "of device busy time")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
@@ -455,6 +539,7 @@ def main():
                 "K3": "kvxopt_tpu/ops/chol_ls.py:592",
                 "K4": "kvxopt_tpu/ops/chol.py:139"}
     sources = {k: "kvxopt_tpu_torch/csrc/chol_ls.cu" for k in replaces}
+    sources["K3"] = "kvxopt_tpu_torch/csrc/tri_solve.cu"
     sources["K4"] = "kvxopt_tpu_torch/csrc/chol.cu"
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],

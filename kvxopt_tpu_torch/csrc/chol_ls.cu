@@ -1,12 +1,12 @@
 // Batched blocked Cholesky with diagonal-block inverses (K1) and the
-// triangular sweeps against that factor (K2, K3), for Hopper (sm_90a).
+// L L^T solve against that factor (K2), for Hopper (sm_90a).
 //
 // These replace the Pallas TPU kernels of kvxopt_tpu/ops/chol_ls.py:
 //   K1  batched_cholesky_ls (chol_ls.py:358, body _chol_ls_kernel :225,
 //       panel step _panel_factor_inverse :136)
 //   K2  chol_solve_ls (chol_ls.py:517, body _solve_kernel :477 with
 //       _fwd_sweep :417 and _bwd_sweep :446)
-//   K3  tri_solve_ls (chol_ls.py:592, body _tri_kernel :498)
+// The single sweep K3 (tri_solve_ls) is tri_solve.cu.
 //
 // Contract (the JAX functions'): f32 in and out, n padded by the caller
 // to npad = 128 * nb with identity on the padded diagonal, row-major
@@ -35,7 +35,7 @@
 #include "chol_factor.cuh"
 
 // ---------------------------------------------------------------------------
-// K2 / K3: block substitution sweeps against (L, Dinv).
+// K2: block substitution sweeps against (L, Dinv), forward then backward.
 //
 // One CTA per (matrix, chunk of KC right-hand-side columns), 512 threads.
 // The chunk of X lives in shared memory for the whole sweep.  Each block
@@ -45,12 +45,9 @@
 //             coalesced along the row, warp-shuffle reduction;
 //   backward: band = L[hi:, i-block]^T, read as rows of L, one thread per
 //             column of the block and 4 partial sums over t, coalesced.
-// At KC = 1 (K2 in the solver's PCG) a sweep is one pass over half of L
-// and is bound by device-memory bandwidth; at KC = 8 with k = n (K3 in
-// the factor refinement) it is bound by compute, and the k / 8 chunks
-// of every matrix read L from L2.
-// mode 0: forward then backward (L L^T x = r), 1: forward (L x = r),
-// 2: backward (L^T x = r).
+// At KC = 1 (the solver's PCG) a sweep is one pass over half of L and is
+// bound by device-memory bandwidth; at KC = 8 (K^-1 A^T, k = p) the k / 8
+// chunks of every matrix read L from L2.
 // ---------------------------------------------------------------------------
 
 #define SW_THREADS 512
@@ -70,7 +67,7 @@ __device__ __forceinline__ void warp_sum(float (&a)[KC])
 template <int KC>
 __global__ void __launch_bounds__(SW_THREADS)
 sweep_kernel(const float* __restrict__ L, const float* __restrict__ Dinv,
-             float* __restrict__ Z, int B, int npad, int kpad, int mode)
+             float* __restrict__ Z, int B, int npad, int kpad)
 {
     extern __shared__ float smem[];
     float* Zs = smem;                   // KC x npad
@@ -87,7 +84,7 @@ sweep_kernel(const float* __restrict__ L, const float* __restrict__ Dinv,
     for (int idx = tid; idx < KC * npad; idx += SW_THREADS) Zs[idx] = Zg[idx];
     __syncthreads();
 
-    if (mode != 2) {
+    {   // forward: L y = r
         for (int i = 0; i < nb; ++i) {
             const int bi = i * BS;
             const float* Di = Dinv + ((size_t)i * B + b) * BS * BS;
@@ -130,7 +127,7 @@ sweep_kernel(const float* __restrict__ L, const float* __restrict__ Dinv,
         }
     }
 
-    if (mode != 1) {
+    {   // backward: L^T x = y
         const int r = tid % BS, p = tid / BS;
         for (int i = nb - 1; i >= 0; --i) {
             const int bi = i * BS, hi = bi + BS;
@@ -207,10 +204,10 @@ int kvx_sweep_smem(int npad, int kc)
     return (kc * npad + kc * BS + SW_PARTS * kc * BS) * (int)sizeof(float);
 }
 
-// Sweep Z (B, kpad, npad) in place against (L, Dinv); kc in {1, 8} columns
-// per CTA, kpad a multiple of kc.
+// Solve L L^T Z = Z for Z (B, kpad, npad) in place against (L, Dinv); kc
+// in {1, 8} columns per CTA, kpad a multiple of kc.
 int kvx_sweep(void* L, void* Dinv, void* Z, int B, int npad, int kpad,
-              int kc, int mode, void* stream)
+              int kc, void* stream)
 {
     cudaStream_t s = (cudaStream_t)stream;
     const int smem = kvx_sweep_smem(npad, kc);
@@ -221,15 +218,13 @@ int kvx_sweep(void* L, void* Dinv, void* Z, int B, int npad, int kpad,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
         sweep_kernel<1><<<grid, SW_THREADS, smem, s>>>(
-            (const float*)L, (const float*)Dinv, (float*)Z, B, npad, kpad,
-            mode);
+            (const float*)L, (const float*)Dinv, (float*)Z, B, npad, kpad);
     } else {
         cudaFuncSetAttribute((const void*)sweep_kernel<8>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
         sweep_kernel<8><<<grid, SW_THREADS, smem, s>>>(
-            (const float*)L, (const float*)Dinv, (float*)Z, B, npad, kpad,
-            mode);
+            (const float*)L, (const float*)Dinv, (float*)Z, B, npad, kpad);
     }
     return (int)cudaGetLastError();
 }

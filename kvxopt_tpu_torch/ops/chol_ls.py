@@ -2,9 +2,10 @@
 triangular solves against it: CUDA kernels K1, K2, K3 and their plain
 PyTorch versions.
 
-Counterpart of kvxopt_tpu/ops/chol_ls.py.  The kernels live in
-csrc/chol_ls.cu (built by ops/_build.py); their source notes say which
-Pallas function each replaces and what bounds it on the card.
+Counterpart of kvxopt_tpu/ops/chol_ls.py.  K1 and K2 live in
+csrc/chol_ls.cu, K3 in csrc/tri_solve.cu (built by ops/_build.py); their
+source notes say which Pallas function each replaces and what bounds it
+on the card.
 
 Every wrapper keeps the JAX function's contract: f32 tensors, n padded
 to a multiple of 128 with identity on the padded diagonal, the factor
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
@@ -28,7 +30,6 @@ LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 LAUNCH_SHAPES = collections.Counter()
 
 _SMEM_LIMIT = 227 * 1024
-_MODE = {"both": 0, "fwd": 1, "bwd": 2}
 
 
 def reset_launches():
@@ -46,13 +47,16 @@ def _lib():
     from ._build import load_library
     lib = load_library()
     if not getattr(lib, "_kvx_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.kvx_chol_ls.argtypes = [vp, vp, ci, ci, vp]
         lib.kvx_chol_ls.restype = ci
         lib.kvx_chol.argtypes = [vp, vp, ci, ci, vp]
         lib.kvx_chol.restype = ci
-        lib.kvx_sweep.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.kvx_sweep.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
         lib.kvx_sweep.restype = ci
+        lib.kvx_tri.argtypes = [vp, vp, vp, vp, ci, ci, ci, ll, ll, ci, ci,
+                                vp]
+        lib.kvx_tri.restype = ci
         lib.kvx_sweep_smem.argtypes = [ci, ci]
         lib.kvx_sweep_smem.restype = ci
         lib._kvx_typed = True
@@ -159,7 +163,7 @@ def batched_cholesky_ls(A):
 
 
 # ---------------------------------------------------------------------------
-# K2 / K3: sweeps
+# K2 / K3: triangular solves
 # ---------------------------------------------------------------------------
 
 def _as3(rhs):
@@ -189,36 +193,46 @@ def tri_solve_ls_ref(L, Dinv, rhs, trans=False):
     return x[:, :, 0] if vec else x
 
 
-def _sweep(L, Dinv, rhs, mode, what):
+def _check_factor(L, Dinv):
     _check(L, "L", 3)
     _check(Dinv, "Dinv", 4)
-    # rhs is staged into a fresh (B, kpad, npad) buffer, so any strides do
-    if rhs.dtype != torch.float32:
-        raise TypeError(f"rhs: kernel takes float32, got {rhs.dtype}")
     B, n, _ = L.shape
     nb = Dinv.shape[0]
-    npad = nb * BS
-    if Dinv.shape != (nb, B, BS, BS) or npad < n or npad - n >= BS:
+    if Dinv.shape != (nb, B, BS, BS) or nb != -(-n // BS):
         raise ValueError(f"Dinv shape {tuple(Dinv.shape)} does not match "
                          f"L {tuple(L.shape)}")
+
+
+def _rhs3(L, rhs):
+    if rhs.dtype != torch.float32:
+        raise TypeError(f"rhs: kernel takes float32, got {rhs.dtype}")
     r3, vec = _as3(rhs)
-    if r3.shape[:2] != (B, n):
+    if r3.shape[:2] != L.shape[:2]:
         raise ValueError(f"rhs shape {tuple(rhs.shape)} does not match L")
+    return r3, vec
+
+
+def _sweep(L, Dinv, rhs):
+    _check_factor(L, Dinv)
+    # rhs is staged into a fresh (B, kpad, npad) buffer, so any strides do
+    r3, vec = _rhs3(L, rhs)
+    B, n, _ = L.shape
+    npad = Dinv.shape[0] * BS
     k = r3.shape[2]
     lib = _lib()
     kc = 1 if k == 1 else 8
     if lib.kvx_sweep_smem(npad, kc) > _SMEM_LIMIT:
         kc = 1
     if lib.kvx_sweep_smem(npad, kc) > _SMEM_LIMIT:
-        raise ValueError(f"{what}: n={n} too large for one CTA's shared "
-                         "memory")
+        raise ValueError(f"chol_solve_ls: n={n} too large for one CTA's "
+                         "shared memory")
     kpad = -(-k // kc) * kc
     Lp = L if npad == n else _pad_identity(L, npad)
     Z = torch.zeros((B, kpad, npad), dtype=L.dtype, device=L.device)
     Z[:, :k, :n] = r3.transpose(1, 2)
     rc = lib.kvx_sweep(Lp.data_ptr(), Dinv.data_ptr(), Z.data_ptr(), B,
-                       npad, kpad, kc, _MODE[mode], _stream())
-    _raise_on(rc, what)
+                       npad, kpad, kc, _stream())
+    _raise_on(rc, "chol_solve_ls")
     x = Z[:, :k, :n].transpose(1, 2)
     return x[:, :, 0] if vec else x
 
@@ -228,16 +242,40 @@ def chol_solve_ls(L, Dinv, rhs):
     (B,n,k), returns the same shape."""
     if _on_cpu(L, Dinv, rhs):
         return chol_solve_ls_ref(L, Dinv, rhs)
-    x = _sweep(L, Dinv, rhs, "both", "chol_solve_ls")
+    x = _sweep(L, Dinv, rhs)
     count_launch("K2", L.shape[-1], _ncols(rhs))
     return x
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tri_kc(B, k, device):
+    """K3's columns per CTA: 64, or 32 where 64 would leave more than half
+    of the SMs without a CTA."""
+    return 64 if 2 * B * -(-k // 64) >= _sm_count(device.index) else 32
+
+
 def tri_solve_ls(L, Dinv, rhs, trans=False):
     """Solve L X = rhs (trans=False) or L' X = rhs (trans=True) given
-    batched_cholesky_ls output, for rhs (B,n) or (B,n,k)."""
+    batched_cholesky_ls output, for rhs (B,n) or (B,n,k).
+
+    On the card, kernel K3 reads rhs in place (a view whose columns are
+    not contiguous is copied once) and writes X (B,n,k) directly; rows of
+    L beyond n act as the identity, so L is not padded."""
     if _on_cpu(L, Dinv, rhs):
         return tri_solve_ls_ref(L, Dinv, rhs, trans)
-    x = _sweep(L, Dinv, rhs, "bwd" if trans else "fwd", "tri_solve_ls")
-    count_launch("K3", L.shape[-1], _ncols(rhs))
-    return x
+    _check_factor(L, Dinv)
+    r3, vec = _rhs3(L, rhs)
+    B, n, k = r3.shape
+    if k > 1 and r3.stride(2) != 1:
+        r3 = r3.contiguous()
+    X = torch.empty((B, n, k), dtype=L.dtype, device=L.device)
+    rc = _lib().kvx_tri(L.data_ptr(), Dinv.data_ptr(), r3.data_ptr(),
+                        X.data_ptr(), B, n, k, r3.stride(0), r3.stride(1),
+                        int(trans), _tri_kc(B, k, L.device), _stream())
+    _raise_on(rc, "tri_solve_ls")
+    count_launch("K3", n, k)
+    return X[:, :, 0] if vec else X

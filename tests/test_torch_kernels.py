@@ -96,9 +96,13 @@ def test_solve_plain_matches_jax(B, n, k):
     assert np.abs(xt - xj).max() / np.abs(xj).max() < 1e-5
 
 
+# k = n is the factor refinement's shape (kkt.py), in both modes
+TRI_CASES = [(B, n, k) for B, n in SHAPES for k in (1, 4)] + [
+    (2, 128, 128), (2, 200, 200)]
+
+
 @pytest.mark.parametrize("trans", [False, True])
-@pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("B,n", SHAPES)
+@pytest.mark.parametrize("B,n,k", TRI_CASES)
 def test_tri_plain_matches_jax(B, n, k, trans):
     Lj, Dj = jax_factors(B, n)
     b = rhs(B, n, k, seed=3)
@@ -238,6 +242,38 @@ def test_kernels_match_plain_on_card(cuda, B, n):
             xr = cl.tri_solve_ls_ref(L, D, b, trans=trans)
             assert float((x - xr).abs().max() /
                          (xr.abs().max() + 1)) < 1e-4
+
+
+def k3_views(b):
+    """R as the solver passes it and with other strides: the transposed
+    view of the factor refinement's second solve (kkt.py), and column
+    slices of a wider tensor, 16-byte aligned (+4) or not (+3)."""
+    B, n, k = b.shape
+    out = [b] + ([b.transpose(1, 2)] if n == k else [])
+    for ofs in (3, 4):
+        wide = torch.zeros((B, n, k + 8), device=b.device)
+        wide[:, :, ofs:ofs + k] = b
+        out.append(wide[:, :, ofs:ofs + k])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("B,n,k", [(16, 512, 512), (2, 128, 37),
+                                   (2, 200, 200), (2, 256, 300),
+                                   (16, 32, 32)])
+def test_k3_matches_plain_on_card(cuda, B, n, k, trans):
+    """K3 where its tiling can go wrong: k = n at the factor-refinement
+    shape, ragged k, k > n, the Schur complement's shape, strided R."""
+    L, D = cl.batched_cholesky_ls(torch.from_numpy(spd(B, n)).to(cuda))
+    b = torch.from_numpy(rhs(B, n, k, seed=4)).to(cuda)
+    for r in k3_views(b):
+        before = cl.LAUNCHES["K3"]
+        x = cl.tri_solve_ls(L, D, r, trans=trans)
+        assert cl.LAUNCHES["K3"] == before + 1
+        xr = cl.tri_solve_ls_ref(L, D, r, trans=trans)
+        assert x.shape == r.shape
+        assert float((x - xr).abs().max() / (xr.abs().max() + 1)) < 1e-4
 
 
 @pytest.mark.cuda
