@@ -8,10 +8,15 @@ orthant and on orthant + second-order cones + equality constraints.
 
 Phases (any failure exits non-zero and prints no result):
   0. environment and kernel build;
-  1. kernels K1/K2 against their plain versions at the solves' shapes
-     (B=16 n=512, K2 at k=1 and k=p=32, and the Schur complement's
-     B=16 n=32) and a padded shape (B=3 n=200), with times, plus the
-     factor + 2 solves headline shape B=16 n=1024; K3 against its plain
+  1. K1 against its plain version at the solves' shapes (B=16 n=512,
+     the Schur complement's B=16 n=32) and a padded shape (B=3 n=200),
+     with times, plus the factor + 2 solves headline shape B=16 n=1024;
+     K2 against its plain version at (B, n, k) = (16,512,1), (16,512,32),
+     (16,32,1), (16,32,32), (3,200,1), (2,130,3), (2,128,37),
+     (2,256,300), (2,4096,1), (2,4096,32), with R contiguous, transposed,
+     sliced (aligned and not) and, at k=1, 2-D and 3-D, then K2, plain and
+     torch.cholesky_solve times and device times at (16,512,1),
+     (16,512,32), (16,32,1), (16,32,32), (16,1024,1); K3 against its plain
      version in both modes at (B, n, k) = (16,512,512), (2,128,37),
      (2,200,200), (2,256,300), (16,32,32), with R contiguous, transposed
      and sliced, then K3 and plain times in both modes at (16,512,512),
@@ -32,7 +37,12 @@ Phases (any failure exits non-zero and prints no result):
      Schur complement (n=32) and K2 with k=p, K1-K3 launched;
   6. phase 5's problems on CPU tensors: same status, iterations within
      1, x within 1e-6.
-The last line is {"ok": true, "device": {...}}; the line before it is
+Each pass-1 breakdown prints K2's and K3's device time, launches and
+share.  The line before the card's line is the kernels line: per kernel
+its launches on the main path, its error against the plain version, its
+time, the plain version's and one PyTorch call's (median of 20), and its
+bound from the bytes and flops of the same shape.  The last line is
+{"ok": true, "device": {...}}; the line before it is
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
 """
 
@@ -160,43 +170,14 @@ def phase1(dev):
               f"(tol 1e-5), max|Dinv*Lkk-I|={eyeerr:.3e} (tol 1e-4)")
         check(relL < 1e-5 and eyeerr < 1e-4, "K1 disagrees with plain")
 
-        rng = np.random.default_rng(2)
-        K64 = K.double()
-        errs2 = {}
-        for k in (1, 4) + ((P_EQ,) if n == N else ()):
-            shape = (Bn, n) if k == 1 else (Bn, n, k)
-            b = torch.as_tensor(rng.standard_normal(shape).astype(
-                np.float32), device=dev)
-            x = cl.chol_solve_ls(L, Dinv, b)
-            xr = cl.chol_solve_ls_ref(L, Dinv, b)
-            torch.cuda.synchronize()
-            x3 = x if k > 1 else x[..., None]
-            r = K64 @ x3.double() - (b if k > 1 else b[..., None]).double()
-            rel = float(torch.linalg.norm(r) / torch.linalg.norm(b.double()))
-            errs2[k] = float((x - xr).abs().max())
-            print(f"K2 B={Bn} n={n} k={k}: residual {rel:.3e} (tol 1e-5), "
-                  f"max|x-xref|={errs2[k]:.3e}")
-            check(rel < 1e-5, "K2 residual too large")
-
         if (Bn, n) == (B, N):
-            b1 = torch.randn((B, N), device=dev)
-            t = {
-                "K1": (median_ms(lambda: cl.batched_cholesky_ls(K)),
-                       median_ms(lambda: cl.batched_cholesky_ls_ref(K))),
-                "K2": (median_ms(lambda: cl.chol_solve_ls(L, Dinv, b1)),
-                       median_ms(lambda: cl.chol_solve_ls_ref(L, Dinv, b1))),
-            }
-            rows["K1"] = dict(err=errL, ms=t["K1"][0], plain=t["K1"][1])
-            rows["K2"] = dict(err=errs2[1], ms=t["K2"][0], plain=t["K2"][1])
-            for k, (a, p) in t.items():
-                print(f"time {k} B={B} n={N}: kernel {a:.4f} ms, "
-                      f"plain {p:.4f} ms (median of 20)")
-            bp = torch.randn((B, N, P_EQ), device=dev)
-            print(f"time K2 B={B} n={N} k={P_EQ}: kernel "
-                  f"{median_ms(lambda: cl.chol_solve_ls(L, Dinv, bp)):.4f} "
-                  f"ms, plain "
-                  f"{median_ms(lambda: cl.chol_solve_ls_ref(L, Dinv, bp)):.4f}"
-                  f" ms (median of 20)")
+            rows["K1"] = dict(
+                err=errL, ms=median_ms(lambda: cl.batched_cholesky_ls(K)),
+                plain=median_ms(lambda: cl.batched_cholesky_ls_ref(K)),
+                lib=median_ms(lambda: torch.linalg.cholesky_ex(K)))
+            print(f"time K1 B={B} n={N}: kernel {rows['K1']['ms']:.4f} ms, "
+                  f"plain {rows['K1']['plain']:.4f} ms, cholesky_ex "
+                  f"{rows['K1']['lib']:.4f} ms (median of 20)")
 
     Kh = spd_batch(B, 1024, 3, dev)
     bh = torch.randn((B, 1024), device=dev)
@@ -214,8 +195,73 @@ def phase1(dev):
     a, p = median_ms(fs_kernel), median_ms(fs_plain)
     print(f"time factor+2 solves B={B} n=1024: kernel {a:.4f} ms, "
           f"plain {p:.4f} ms (median of 20)")
+    rows["K2"] = phase1_k2(dev)
     rows["K3"] = phase1_k3(dev)
     return rows
+
+
+# (B, n, k) where K2 can go wrong: the solves' shapes, ragged n (200, and
+# 130 for 4-byte copies), ragged k, k > n, and n = 4096 (the solved tile
+# in shared memory at k = 1, in device memory at k = 32)
+K2_CHECKS = ((B, N, 1), (B, N, P_EQ), (B, P_EQ, 1), (B, P_EQ, P_EQ),
+             (3, 200, 1), (2, 130, 3), (2, 128, 37), (2, 256, 300),
+             (2, 4096, 1), (2, 4096, P_EQ))
+
+
+def rhs_views(b):
+    """rhs as the solver passes it and as views with other strides: a
+    transposed copy read back through a transposed view, and slices of a
+    wider tensor, 16-byte aligned (+4) or not (+3); k = 1 also as 3-D."""
+    Bn, n = b.shape[:2]
+    k = b.shape[2] if b.ndim == 3 else 0
+    out = {"contiguous": b}
+    if k == 0:
+        out["3-D"] = b[:, :, None]
+    out["transposed"] = b.mT.contiguous().mT if k else b.t().contiguous().t()
+    for ofs in (3, 4):
+        wide = torch.zeros((Bn, n, k + 8) if k else (Bn, n + 8),
+                           device=b.device)
+        wide[..., ofs:ofs + (k or n)] = b
+        out[f"slice+{ofs}"] = wide[..., ofs:ofs + (k or n)]
+    return out
+
+
+def phase1_k2(dev):
+    """K2 against its plain version at K2_CHECKS with every view of R
+    (relative residual and difference < 1e-5, one launch per call), then
+    its times beside the plain version and torch.cholesky_solve."""
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    g = torch.Generator(device=dev).manual_seed(14)
+    err = None
+    for Bn, n, k in K2_CHECKS:
+        K = spd_batch(Bn, n, 13, dev)
+        L, Dinv = cl.batched_cholesky_ls(K)
+        b = torch.randn((Bn, n) if k == 1 else (Bn, n, k), generator=g,
+                        device=dev)
+        xr = cl.chol_solve_ls_ref(L, Dinv, b)
+        b3 = b.reshape(Bn, n, k).double()
+        for view, r in rhs_views(b).items():
+            before = cl.LAUNCHES["K2"]
+            x = cl.chol_solve_ls(L, Dinv, r)
+            torch.cuda.synchronize()
+            check(cl.LAUNCHES["K2"] == before + 1, "K2: not one launch")
+            check(x.shape == r.shape and x.is_contiguous(), "K2 output")
+            x3 = x.reshape(Bn, n, k).double()
+            res = float(torch.linalg.norm(K.double() @ x3 - b3) /
+                        torch.linalg.norm(b3))
+            dx = float((x.reshape(xr.shape) - xr).abs().max())
+            rel = dx / float(xr.abs().max())
+            print(f"K2 B={Bn} n={n} k={k} R {view}: residual {res:.3e}, "
+                  f"max|x-xref|/max|xref|={rel:.3e} (tol 1e-5)")
+            check(res < 1e-5 and rel < 1e-5, "K2 disagrees with plain")
+            if (Bn, n, k, view) == (B, N, 1, "contiguous"):
+                err = dx
+        del K, L, Dinv
+    t = k2_times(dev)
+    for (Bn, n, k), r in t.items():
+        bms, by = bound(*solve_work(Bn, n, k, 2))
+        print(f"bound K2 B={Bn} n={n} k={k}: {bms:.4f} ms ({by})")
+    return dict(t[(B, N, 1)], err=err)
 
 
 # (B, n, k) where K3's tiling can go wrong: k = n at the factor-refinement
@@ -281,7 +327,10 @@ def phase1_k3(dev):
                   f"({flop / p / 1e9:.3f} TFLOP/s) (median of 20; "
                   "TFLOP/s = B n^2 k / t)")
             if (Bn, n, k, trans) == (B, N, N, False):
-                row.update(ms=a, plain=p)
+                row.update(ms=a, plain=p, lib=median_ms(
+                    lambda: torch.linalg.solve_triangular(L, b, upper=False)))
+                print(f"time solve_triangular B={Bn} n={n} k={k}: "
+                      f"{row['lib']:.4f} ms (median of 20)")
             if (Bn, n, k) != (B, N, N):
                 continue
             reps = 10
@@ -310,6 +359,79 @@ def phase1_k3(dev):
     return row
 
 
+# K2 at the solves' shapes: the PCG's one column and K^-1 A' (k = p) at
+# n=512, the Schur PCG at n=32, and the headline n=1024
+K2_TIMES = ((B, N, 1), (B, N, P_EQ), (B, P_EQ, 1), (B, P_EQ, P_EQ),
+            (B, 1024, 1))
+# K2's kernel name in the profiler
+K2_KEYS = ("chol_solve_kernel",)
+
+
+def profile_ms(fn, reps=20, keys=(), flush=None):
+    """Device time per call from one profiler window of `reps` calls:
+    (all kernels, the kernels whose name holds one of `keys`).  With
+    `flush` (run before each call, outside `keys`) only the second is
+    meaningful.  None where the profiler saw no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kern) / reps / 1e3
+    mine = sum(e.self_device_time_total for e in kern
+               if any(k in e.key for k in keys)) / reps / 1e3
+    return (total, mine) if total > 0 else None
+
+
+def k2_times(dev):
+    """K2, its plain version and torch.cholesky_solve (one cuSOLVER call
+    for the same function) at K2_TIMES: host-timed median of 20, and
+    device time per call from one profiler window each, K2's kernel warm
+    (back to back) and cold (a 64 MB write evicts L2 before each call)."""
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    scratch = torch.empty(16 * 2 ** 20, device=dev)
+    rows = {}
+    for Bn, n, k in K2_TIMES:
+        K = spd_batch(Bn, n, 10, dev)
+        L, Dinv = cl.batched_cholesky_ls(K)
+        b = torch.randn((Bn, n) if k == 1 else (Bn, n, k), device=dev)
+        b3 = b if k > 1 else b[..., None]
+
+        def kern():
+            return cl.chol_solve_ls(L, Dinv, b)
+
+        def lib():
+            return torch.cholesky_solve(b3, L)
+
+        t = dict(ms=median_ms(kern),
+                 plain=median_ms(lambda: cl.chol_solve_ls_ref(L, Dinv, b)),
+                 lib=median_ms(lib))
+        warm = profile_ms(kern, keys=K2_KEYS)
+        cold = profile_ms(kern, keys=K2_KEYS, flush=scratch.zero_)
+        libd = profile_ms(lib)
+        if warm is not None and cold is not None and libd is not None:
+            t.update(dev_call=warm[0], dev=warm[1], dev_cold=cold[1],
+                     dev_lib=libd[0])
+            dtxt = (f"; device: K2 call {warm[0]:.4f} ms, kernel "
+                    f"{warm[1]:.4f} warm, {cold[1]:.4f} cold, cholesky_solve "
+                    f"{libd[0]:.4f}")
+        else:
+            dtxt = "; device time not measured (no device events)"
+        rows[(Bn, n, k)] = t
+        print(f"time K2 B={Bn} n={n} k={k}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, cholesky_solve {t['lib']:.4f} ms "
+              f"(host, median of 20){dtxt}", flush=True)
+    return rows
+
+
 def phase2(dev):
     """K4 against its plain version and K1's L, then K4's own path: the
     ops entry point, with the counts set to 0 just before it."""
@@ -333,9 +455,11 @@ def phase2(dev):
         if (Bn, n) == (B, N):
             row = dict(err=err,
                        ms=median_ms(lambda: ch.batched_cholesky(K)),
-                       plain=median_ms(lambda: ch.batched_cholesky_ref(K)))
+                       plain=median_ms(lambda: ch.batched_cholesky_ref(K)),
+                       lib=median_ms(lambda: torch.linalg.cholesky_ex(K)))
             print(f"time K4 B={B} n={N}: kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain']:.4f} ms (median of 20)")
+                  f"{row['plain']:.4f} ms, cholesky_ex {row['lib']:.4f} ms "
+                  "(median of 20)")
 
     K = spd_batch(B, N, 5, dev)
     torch.cuda.synchronize()
@@ -373,6 +497,49 @@ def scaling_rows(dev):
             f"{k} {v:.4f} ms ({flop / v / 1e9:.3f} TFLOP/s)"
             for k, v in t.items()) +
             f" (median of 10; K4 vs plain {rel:.2e})", flush=True)
+
+
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): device memory and f32
+# FFMA outside the tensor cores
+HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+
+
+def bound(nbytes, flops):
+    """(least time in ms, what bounds it): the larger of the bytes over
+    the memory rate and the operations over the f32 peak."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def solve_work(Bn, n, k, sweeps):
+    """Bytes and flops of K2 (sweeps=2) or K3 (1) at (B, n, k): the
+    strictly block-lower part of L and the lower triangle of each valid
+    Dinv block read once, R read and X written once; per column and sweep
+    the band and Dinv products (2 flops per multiply-add), n (n + 1) / 2
+    multiply-adds in all."""
+    hs = [min(128, n - bi) for bi in range(0, n, 128)]
+    band = sum(h * bi for h, bi in zip(hs, range(0, n, 128)))
+    diag = sum(h * (h + 1) // 2 for h in hs)
+    nbytes = 4 * Bn * (band + diag + 2 * n * k)
+    return nbytes, 2 * sweeps * Bn * k * (band + diag)
+
+
+def factor_work(Bn, n, inverses):
+    """Bytes and flops of K1 (inverses) or K4: A read and L written once
+    (and Dinv written), B n^3/3 flops (and the blocks' inverses)."""
+    hs = [min(128, n - bi) for bi in range(0, n, 128)]
+    nbytes = 4 * Bn * (2 * n * n + (sum(h * h for h in hs) if inverses
+                                     else 0))
+    flops = Bn * (n ** 3 + (sum(h ** 3 for h in hs) if inverses else 0)) / 3
+    return nbytes, flops
+
+
+def kernel_bounds():
+    """Each kernel's bound at the shape of its row in the kernels line."""
+    return {"K1": bound(*factor_work(B, N, True)),
+            "K2": bound(*solve_work(B, N, 1, 2)),
+            "K3": bound(*solve_work(B, N, N, 1)),
+            "K4": bound(*factor_work(B, N, False))}
 
 
 def residuals(P, q, G, h, x, s, z, A=None, b=None, y=None):
@@ -474,11 +641,12 @@ def breakdown(name, dims, args):
     print(f"{name} profile pass 1 (profiler on): wall {wall:.4f} s, device "
           f"busy {busy:.4f} s ({100 * busy / wall:.1f}%), {len(kern)} "
           "kernels")
-    k3 = [e for e in kern if "tri_kernel" in e.key]
-    k3_s = sum(e.self_device_time_total for e in k3) / 1e6
-    print(f"{name} profile pass 1: K3 {k3_s * 1e3:.2f} ms in "
-          f"{sum(e.count for e in k3)} launches, {100 * k3_s / busy:.2f}% "
-          "of device busy time")
+    for kname, keys in (("K2", K2_KEYS), ("K3", ("tri_kernel",))):
+        mine = [e for e in kern if any(k in e.key for k in keys)]
+        t = sum(e.self_device_time_total for e in mine) / 1e6
+        print(f"{name} profile pass 1: {kname} {t * 1e3:.2f} ms in "
+              f"{sum(e.count for e in mine)} launches, "
+              f"{100 * t / busy:.2f}% of device busy time")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
@@ -538,14 +706,18 @@ def main():
                 "K2": "kvxopt_tpu/ops/chol_ls.py:517",
                 "K3": "kvxopt_tpu/ops/chol_ls.py:592",
                 "K4": "kvxopt_tpu/ops/chol.py:139"}
-    sources = {k: "kvxopt_tpu_torch/csrc/chol_ls.cu" for k in replaces}
-    sources["K3"] = "kvxopt_tpu_torch/csrc/tri_solve.cu"
-    sources["K4"] = "kvxopt_tpu_torch/csrc/chol.cu"
+    sources = {"K1": "kvxopt_tpu_torch/csrc/chol_ls.cu",
+               "K2": "kvxopt_tpu_torch/csrc/chol_solve.cu",
+               "K3": "kvxopt_tpu_torch/csrc/tri_solve.cu",
+               "K4": "kvxopt_tpu_torch/csrc/chol.cu"}
+    bounds = kernel_bounds()
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
-         "plain_ms": rows[k]["plain"]} for k in replaces]}))
+         "plain_ms": rows[k]["plain"], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": rows[k]["lib"]}
+        for k in replaces]}))
     print(sh(["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]))
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,7 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "common.cuh"
 
 #define BS 128
 
@@ -301,21 +300,22 @@ static int chol_factor_blocked(float* O, float* Dinv, size_t panel_stride,
     const int smem_diag = (2 * BS * LDS_ + 3 * SB * SB) * sizeof(float);
     const int smem_panel = (BS * LDD + PR_ROWS * BS) * sizeof(float);
     const int smem_trail = 2 * BS * LDT * sizeof(float);
-    cudaFuncSetAttribute((const void*)chol_diag_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_diag);
-    cudaFuncSetAttribute((const void*)chol_panel_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_panel);
-    cudaFuncSetAttribute((const void*)chol_trailing_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem_trail);
+    static unsigned diag_set, panel_set, trail_set;
+    cudaError_t e = smem_limit_once((const void*)chol_diag_kernel,
+                                    smem_diag, &diag_set);
+    if (e == cudaSuccess)
+        e = smem_limit_once((const void*)chol_panel_kernel, smem_panel,
+                            &panel_set);
+    if (e == cudaSuccess)
+        e = smem_limit_once((const void*)chol_trailing_kernel, smem_trail,
+                            &trail_set);
+    if (e != cudaSuccess) return (int)e;
     const int nb = npad / BS;
     for (int kb = 0; kb < nb; ++kb) {
         const int base = kb * BS;
         float* dk = Dinv + (size_t)kb * panel_stride;
         chol_diag_kernel<<<B, 512, smem_diag, s>>>(O, dk, npad, base);
-        cudaError_t e = cudaGetLastError();
+        e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
         const int m = npad - base - BS;
         if (m == 0) break;

@@ -1,0 +1,89 @@
+// Helpers shared by the port's kernels: cp.async copies into shared
+// memory with zero-fill, and the once-per-process shared-memory limit.
+//
+// Everything here is static or in an anonymous namespace: each source
+// that includes this header gets its own copy and builds as a separate
+// object.
+
+#pragma once
+
+#include <stddef.h>
+#include <stdint.h>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+// Copy 16 bytes (VEC) or 4 bytes into shared memory; ok = false writes
+// zeros and reads nothing.
+template <bool VEC>
+__device__ __forceinline__ void cp_async_zfill(float* dst, const float* src,
+                                               bool ok)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if (VEC)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                     :: "r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait()
+{
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Copy a ROWS x COLS tile from device memory (row stride ld) into shared
+// memory (row stride dld) with the THREADS threads of the CTA; rows >= vr
+// and columns >= vc are zero-filled.  VEC needs 16-byte aligned rows and
+// vc a multiple of 4.
+template <int ROWS, int COLS, bool VEC, int THREADS>
+__device__ __forceinline__ void tile_async(float* dst, int dld,
+                                           const float* src, size_t ld,
+                                           int vr, int vc)
+{
+    constexpr int W = VEC ? 4 : 1;
+    constexpr int CW = COLS / W;
+    static_assert((ROWS * CW) % THREADS == 0, "tile must split evenly");
+#pragma unroll
+    for (int it = 0; it < ROWS * CW / THREADS; ++it) {
+        const int idx = it * THREADS + threadIdx.x;
+        const int r = idx / CW, c = (idx % CW) * W;
+        const bool ok = r < vr && c < vc;
+        cp_async_zfill<VEC>(dst + r * dld + c, ok ? src + r * ld + c : src,
+                            ok);
+    }
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+}  // namespace
+
+// Raise a kernel's dynamic shared-memory limit once per process and
+// device (a driver call on every launch costs host time on a path of
+// many small launches); with max_shared, also ask for the largest shared
+// memory carveout, so that two CTAs of over 100 KB fit on one SM.  `done`
+// is a static flag word of the caller, one bit per device.
+static inline cudaError_t smem_limit_once(const void* fn, int bytes,
+                                          unsigned* done,
+                                          bool max_shared = false)
+{
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess || (*done >> dev & 1u)) return e;
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e == cudaSuccess && max_shared)
+        e = cudaFuncSetAttribute(fn,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (e == cudaSuccess) *done |= 1u << dev;
+    return e;
+}

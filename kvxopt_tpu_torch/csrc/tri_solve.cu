@@ -65,9 +65,7 @@
 // The C entry point returns cudaGetLastError(); it launches on the given
 // stream, synchronises nothing and allocates nothing.
 
-#include <stdint.h>
-
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -81,50 +79,6 @@ constexpr int TS_A = TS_BS * TS_AST;        // floats per A stage (>= 32*128)
 __device__ __forceinline__ int row_of(int j, int ty)
 {
     return (j >> 2) * 64 + ty * 4 + (j & 3);
-}
-
-template <bool VEC>
-__device__ __forceinline__ void cp_async_zfill(float* dst, const float* src,
-                                               bool ok)
-{
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    if (VEC)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                     :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                     :: "r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit()
-{
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait()
-{
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Copy a ROWS x COLS tile from device memory (row stride ld) into shared
-// memory (row stride dld); rows >= vr and columns >= vc are zero-filled.
-template <int ROWS, int COLS, bool VEC>
-__device__ __forceinline__ void tile_async(float* dst, int dld,
-                                           const float* src, size_t ld,
-                                           int vr, int vc)
-{
-    constexpr int W = VEC ? 4 : 1;
-    constexpr int CW = COLS / W;
-    static_assert((ROWS * CW) % TS_THREADS == 0, "tile must split evenly");
-#pragma unroll
-    for (int it = 0; it < ROWS * CW / TS_THREADS; ++it) {
-        const int idx = it * TS_THREADS + threadIdx.x;
-        const int r = idx / CW, c = (idx % CW) * W;
-        const bool ok = r < vr && c < vc;
-        cp_async_zfill<VEC>(dst + r * dld + c, ok ? src + r * ld + c : src,
-                            ok);
-    }
 }
 
 template <int TN>
@@ -231,21 +185,21 @@ tri_kernel(const float* __restrict__ L, const float* __restrict__ Dinv,
             if (q < nband) {
                 const int t0 = t_lo + q * TS_KT;
                 if (TRANS)
-                    tile_async<TS_KT, TS_BS, VEC>(
+                    tile_async<TS_KT, TS_BS, VEC, TS_THREADS>(
                         a, TS_BS, Lb + (size_t)t0 * n + bi, n, n - t0, TS_BS);
                 else
-                    tile_async<TS_BS, TS_KT, VEC>(
+                    tile_async<TS_BS, TS_KT, VEC, TS_THREADS>(
                         a, TS_AST, Lb + (size_t)bi * n + t0, n, n - bi, TS_KT);
-                tile_async<TS_KT, KC, VEC>(Bs + s * TS_KT * KC, KC,
+                tile_async<TS_KT, KC, VEC, TS_THREADS>(Bs + s * TS_KT * KC, KC,
                                            Xb + (size_t)t0 * k, k, n - t0,
                                            vc);
             } else {
                 const int s0 = (q - nband) * TS_KT;
                 if (TRANS)
-                    tile_async<TS_KT, TS_BS, VEC>(
+                    tile_async<TS_KT, TS_BS, VEC, TS_THREADS>(
                         a, TS_BS, Di + s0 * TS_BS, TS_BS, TS_KT, TS_BS);
                 else
-                    tile_async<TS_BS, TS_KT, VEC>(
+                    tile_async<TS_BS, TS_KT, VEC, TS_THREADS>(
                         a, TS_AST, Di + s0, TS_BS, TS_BS, TS_KT);
             }
         };
@@ -326,8 +280,8 @@ int tri_launch(const float* L, const float* Dinv, const float* R, float* X,
     constexpr int KC = 16 * TN;
     constexpr int smem = tri_smem_bytes(KC);
     const void* fn = (const void*)tri_kernel<TRANS, VEC, TN>;
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    static unsigned smem_set;
+    cudaError_t e = smem_limit_once(fn, smem, &smem_set);
     if (e != cudaSuccess) return (int)e;
     dim3 grid((k + KC - 1) / KC, B);
     tri_kernel<TRANS, VEC, TN><<<grid, TS_THREADS, smem, s>>>(
@@ -344,8 +298,6 @@ int tri_dispatch_kc(const float* L, const float* Dinv, const float* R,
         return tri_launch<TRANS, VEC, 4>(L, Dinv, R, X, B, n, k, sRb, sRr, s);
     return tri_launch<TRANS, VEC, 2>(L, Dinv, R, X, B, n, k, sRb, sRr, s);
 }
-
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 

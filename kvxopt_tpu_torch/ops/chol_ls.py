@@ -2,15 +2,16 @@
 triangular solves against it: CUDA kernels K1, K2, K3 and their plain
 PyTorch versions.
 
-Counterpart of kvxopt_tpu/ops/chol_ls.py.  K1 and K2 live in
-csrc/chol_ls.cu, K3 in csrc/tri_solve.cu (built by ops/_build.py); their
-source notes say which Pallas function each replaces and what bounds it
-on the card.
+Counterpart of kvxopt_tpu/ops/chol_ls.py.  K1 lives in csrc/chol_ls.cu,
+K2 in csrc/chol_solve.cu, K3 in csrc/tri_solve.cu (built by
+ops/_build.py); their source notes say which Pallas function each
+replaces and what bounds it on the card.
 
-Every wrapper keeps the JAX function's contract: f32 tensors, n padded
-to a multiple of 128 with identity on the padded diagonal, the factor
-returned as (tril(L) (B,n,n), Dinv (nb,B,128,128)).  A tensor on the CPU
-goes to the plain version; a CUDA tensor goes to the kernel or raises.
+Every wrapper keeps the JAX function's contract: f32 tensors, the factor
+returned as (tril(L) (B,n,n), Dinv (nb,B,128,128)) with nb = ceil(n/128)
+and identity on the padded diagonal of the last Dinv block.  A tensor on
+the CPU goes to the plain version; a CUDA tensor goes to the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -29,7 +30,13 @@ BS = 128
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 LAUNCH_SHAPES = collections.Counter()
 
-_SMEM_LIMIT = 227 * 1024
+# Shared memory, in bytes, that one CTA of K2 may use to keep the solved
+# part of its tile; where it needs more, that part goes through X in
+# device memory instead.  Its value is the card's own limit per CTA (227
+# KB on an H100), which the kernel also applies: this is not a tuning
+# option, only a hook by which a test sets 0 to force the device-memory
+# path.
+_K2_SMEM_BYTES = 227 * 1024
 
 
 def reset_launches():
@@ -52,13 +59,12 @@ def _lib():
         lib.kvx_chol_ls.restype = ci
         lib.kvx_chol.argtypes = [vp, vp, ci, ci, vp]
         lib.kvx_chol.restype = ci
-        lib.kvx_sweep.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.kvx_sweep.restype = ci
+        lib.kvx_chol_solve.argtypes = [vp, vp, vp, vp, ci, ci, ci, ll, ll,
+                                       ci, vp]
+        lib.kvx_chol_solve.restype = ci
         lib.kvx_tri.argtypes = [vp, vp, vp, vp, ci, ci, ci, ll, ll, ci, ci,
                                 vp]
         lib.kvx_tri.restype = ci
-        lib.kvx_sweep_smem.argtypes = [ci, ci]
-        lib.kvx_sweep_smem.restype = ci
         lib._kvx_typed = True
     return lib
 
@@ -170,10 +176,6 @@ def _as3(rhs):
     return (rhs[:, :, None], True) if rhs.ndim == 2 else (rhs, False)
 
 
-def _ncols(rhs):
-    return 1 if rhs.ndim == 2 else rhs.shape[2]
-
-
 def chol_solve_ls_ref(L, Dinv, rhs):
     """Plain version of K2: two triangular solves."""
     r3, vec = _as3(rhs)
@@ -203,48 +205,39 @@ def _check_factor(L, Dinv):
                          f"L {tuple(L.shape)}")
 
 
-def _rhs3(L, rhs):
+def _solve_args(L, Dinv, rhs):
+    """Checks shared by K2 and K3: (R as (B,n,k) with unit column stride,
+    whether rhs was (B,n), the output X (B,n,k)).  R is read in place; a
+    view whose columns are not contiguous is copied once."""
+    _check_factor(L, Dinv)
     if rhs.dtype != torch.float32:
         raise TypeError(f"rhs: kernel takes float32, got {rhs.dtype}")
     r3, vec = _as3(rhs)
     if r3.shape[:2] != L.shape[:2]:
         raise ValueError(f"rhs shape {tuple(rhs.shape)} does not match L")
-    return r3, vec
-
-
-def _sweep(L, Dinv, rhs):
-    _check_factor(L, Dinv)
-    # rhs is staged into a fresh (B, kpad, npad) buffer, so any strides do
-    r3, vec = _rhs3(L, rhs)
-    B, n, _ = L.shape
-    npad = Dinv.shape[0] * BS
-    k = r3.shape[2]
-    lib = _lib()
-    kc = 1 if k == 1 else 8
-    if lib.kvx_sweep_smem(npad, kc) > _SMEM_LIMIT:
-        kc = 1
-    if lib.kvx_sweep_smem(npad, kc) > _SMEM_LIMIT:
-        raise ValueError(f"chol_solve_ls: n={n} too large for one CTA's "
-                         "shared memory")
-    kpad = -(-k // kc) * kc
-    Lp = L if npad == n else _pad_identity(L, npad)
-    Z = torch.zeros((B, kpad, npad), dtype=L.dtype, device=L.device)
-    Z[:, :k, :n] = r3.transpose(1, 2)
-    rc = lib.kvx_sweep(Lp.data_ptr(), Dinv.data_ptr(), Z.data_ptr(), B,
-                       npad, kpad, kc, _stream())
-    _raise_on(rc, "chol_solve_ls")
-    x = Z[:, :k, :n].transpose(1, 2)
-    return x[:, :, 0] if vec else x
+    B, n, k = r3.shape
+    if k > 1 and r3.stride(2) != 1:
+        r3 = r3.contiguous()
+    return r3, vec, torch.empty((B, n, k), dtype=L.dtype, device=L.device)
 
 
 def chol_solve_ls(L, Dinv, rhs):
     """Solve L L' X = rhs given batched_cholesky_ls output; rhs (B,n) or
-    (B,n,k), returns the same shape."""
+    (B,n,k), returns the same shape.
+
+    On the card, kernel K2 runs both sweeps in one launch, reads rhs in
+    place and writes X (B,n,k) directly; rows of L beyond n act as the
+    identity, so L is not padded."""
     if _on_cpu(L, Dinv, rhs):
         return chol_solve_ls_ref(L, Dinv, rhs)
-    x = _sweep(L, Dinv, rhs)
-    count_launch("K2", L.shape[-1], _ncols(rhs))
-    return x
+    r3, vec, X = _solve_args(L, Dinv, rhs)
+    B, n, k = r3.shape
+    rc = _lib().kvx_chol_solve(L.data_ptr(), Dinv.data_ptr(), r3.data_ptr(),
+                               X.data_ptr(), B, n, k, r3.stride(0),
+                               r3.stride(1), _K2_SMEM_BYTES, _stream())
+    _raise_on(rc, "chol_solve_ls")
+    count_launch("K2", n, k)
+    return X[:, :, 0] if vec else X
 
 
 @functools.lru_cache(maxsize=None)
@@ -267,12 +260,8 @@ def tri_solve_ls(L, Dinv, rhs, trans=False):
     L beyond n act as the identity, so L is not padded."""
     if _on_cpu(L, Dinv, rhs):
         return tri_solve_ls_ref(L, Dinv, rhs, trans)
-    _check_factor(L, Dinv)
-    r3, vec = _rhs3(L, rhs)
+    r3, vec, X = _solve_args(L, Dinv, rhs)
     B, n, k = r3.shape
-    if k > 1 and r3.stride(2) != 1:
-        r3 = r3.contiguous()
-    X = torch.empty((B, n, k), dtype=L.dtype, device=L.device)
     rc = _lib().kvx_tri(L.data_ptr(), Dinv.data_ptr(), r3.data_ptr(),
                         X.data_ptr(), B, n, k, r3.stride(0), r3.stride(1),
                         int(trans), _tri_kc(B, k, L.device), _stream())

@@ -79,8 +79,9 @@ def test_factor_plain_matches_jax(B, n):
     assert np.array_equal(np.triu(Lt.numpy(), 1), np.zeros_like(Lj))
 
 
-@pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("B,n", SHAPES)
+# k = 32 is K^-1 A' (k = p), 37 a ragged column tile; n = 32 the Schur PCG
+@pytest.mark.parametrize("k", [1, 4, 32, 37])
+@pytest.mark.parametrize("B,n", SHAPES + [(16, 32)])
 def test_solve_plain_matches_jax(B, n, k):
     Lj, Dj = jax_factors(B, n)
     b = rhs(B, n, k)
@@ -94,6 +95,61 @@ def test_solve_plain_matches_jax(B, n, k):
     r = np.einsum("bij,bj...->bi...", K, xt) - b
     assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-5
     assert np.abs(xt - xj).max() / np.abs(xj).max() < 1e-5
+
+
+def rhs_views(b):
+    """rhs as the solver passes it and as views with other strides: a
+    transposed copy read back through a transposed view, and slices of a
+    wider tensor, 16-byte aligned (+4) or not (+3).  Each is (label, view)."""
+    B, n = b.shape[:2]
+    out = [("contiguous", b)]
+    if b.ndim == 2:
+        out.append(("3-D", b[:, :, None]))
+        out.append(("transposed", b.t().contiguous().t()))
+        for ofs in (3, 4):
+            wide = torch.zeros((B, n + 8), device=b.device)
+            wide[:, ofs:ofs + n] = b
+            out.append((f"slice+{ofs}", wide[:, ofs:ofs + n]))
+        return out
+    k = b.shape[2]
+    out.append(("transposed", b.transpose(1, 2).contiguous().transpose(1, 2)))
+    for ofs in (3, 4):
+        wide = torch.zeros((B, n, k + 8), device=b.device)
+        wide[:, :, ofs:ofs + k] = b
+        out.append((f"slice+{ofs}", wide[:, :, ofs:ofs + k]))
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_solve_plain_accepts_strided_rhs(k):
+    """The CPU path takes rhs with any strides and returns rhs's shape."""
+    L, D = cl.batched_cholesky_ls(torch.from_numpy(spd(2, 130)))
+    b = torch.from_numpy(rhs(2, 130, k))
+    x0 = cl.chol_solve_ls(L, D, b)
+    for label, r in rhs_views(b):
+        x = cl.chol_solve_ls(L, D, r)
+        assert x.shape == r.shape, label
+        torch.testing.assert_close(x.reshape(x0.shape), x0, rtol=0,
+                                   atol=1e-6, msg=label)
+
+
+def test_solve_args_read_rhs_in_place():
+    """What K2 and K3 are handed: rhs itself wherever its columns are
+    contiguous (any batch and row strides), one copy where they are not,
+    and a fresh contiguous (B, n, k) X."""
+    L, D = cl.batched_cholesky_ls(torch.from_numpy(spd(2, 130)))
+    for k in (1, 5):
+        b = torch.from_numpy(rhs(2, 130, k))
+        for label, r in rhs_views(b):
+            r3, vec, X = cl._solve_args(L, D, r)
+            assert vec == (r.ndim == 2), label
+            assert X.shape == (2, 130, k) and X.is_contiguous(), label
+            assert r3.shape == (2, 130, k) and torch.equal(
+                r3.reshape(b.shape), b), label
+            if k > 1:
+                assert r3.stride(2) == 1, label
+            same = r3.data_ptr() == r.data_ptr()
+            assert same == (label != "transposed" or k == 1), label
 
 
 # k = n is the factor refinement's shape (kkt.py), in both modes
@@ -276,14 +332,75 @@ def test_k3_matches_plain_on_card(cuda, B, n, k, trans):
         assert float((x - xr).abs().max() / (xr.abs().max() + 1)) < 1e-4
 
 
+def spd_on(B, n, dev, seed=1):
+    """spd(B, n) made on the card (numpy is slow at n = 4096)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G = torch.randn((B, 2 * n, n), generator=g, device=dev)
+    return G.mT @ G + n * torch.eye(n, device=dev)
+
+
+# (B, n, k) where K2 can go wrong: the solves' shapes (the PCG's k = 1,
+# K^-1 A' at k = p = 32, the Schur PCG at n = 32), ragged n (200, and 130
+# for 4-byte copies), ragged k, k > n, and n = 4096 (the solved tile in
+# shared memory at k = 1, in device memory at k = 32)
+K2_CASES = [(16, 512, 1), (16, 512, 32), (16, 32, 1), (16, 32, 32),
+            (3, 200, 1), (2, 130, 3), (2, 128, 37), (2, 256, 300),
+            (2, 4096, 1), (2, 4096, 32)]
+
+
 @pytest.mark.cuda
-def test_indefinite_lane_gives_nan_on_card(cuda):
+@pytest.mark.parametrize("B,n,k", K2_CASES)
+def test_k2_matches_plain_on_card(cuda, B, n, k):
+    """One launch per call, rhs read with its own strides, and the
+    relative residual and the plain version's x within 1e-5."""
+    K = spd_on(B, n, cuda)
+    L, D = cl.batched_cholesky_ls(K)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b = torch.randn((B, n) if k == 1 else (B, n, k), generator=g,
+                    device=cuda)
+    xr = cl.chol_solve_ls_ref(L, D, b)
+    for label, r in rhs_views(b):
+        before = cl.LAUNCHES["K2"]
+        x = cl.chol_solve_ls(L, D, r)
+        assert cl.LAUNCHES["K2"] == before + 1
+        assert x.shape == r.shape and x.is_contiguous(), label
+        x3, b3 = x.reshape(B, n, k).double(), b.reshape(B, n, k).double()
+        res = torch.linalg.norm(K.double() @ x3 - b3) / torch.linalg.norm(b3)
+        assert float(res) < 1e-5, label
+        err = (x.reshape(xr.shape) - xr).abs().max() / xr.abs().max()
+        assert float(err) < 1e-5, label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,k", [(16, 512, 1), (3, 200, 1), (2, 130, 1),
+                                   (16, 512, 32), (2, 256, 300)])
+def test_k2_device_memory_tile_on_card(cuda, monkeypatch, B, n, k):
+    """The path that keeps the solved tile in device memory (taken where
+    shared memory cannot hold it), forced at the solves' shapes."""
+    K = spd_on(B, n, cuda)
+    L, D = cl.batched_cholesky_ls(K)
+    b = torch.randn((B, n) if k == 1 else (B, n, k), device=cuda)
+    x_smem = cl.chol_solve_ls(L, D, b)
+    monkeypatch.setattr(cl, "_K2_SMEM_BYTES", 0)
+    x = cl.chol_solve_ls(L, D, b)
+    xr = cl.chol_solve_ls_ref(L, D, b)
+    assert float((x - xr).abs().max() / xr.abs().max()) < 1e-5
+    assert float((x - x_smem).abs().max() / xr.abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32])
+def test_indefinite_lane_gives_nan_on_card(cuda, k):
+    """A NaN factor lane stays NaN in K2 and leaves the other lane alone."""
     L, D = cl.batched_cholesky_ls(indefinite_pair().to(cuda))
     assert bool(torch.isfinite(L[0]).all())
     assert bool(torch.isnan(L[1]).any())
-    x = cl.chol_solve_ls(L, D, torch.ones((2, 200), device=cuda))
+    b = torch.ones((2, 200) if k == 1 else (2, 200, k), device=cuda)
+    x = cl.chol_solve_ls(L, D, b)
     assert bool(torch.isfinite(x[0]).all())
     assert bool(torch.isnan(x[1]).any())
+    xr = cl.chol_solve_ls_ref(L[:1], D[:, :1].contiguous(), b[:1])
+    assert float((x[:1] - xr).abs().max() / xr.abs().max()) < 1e-5
 
 
 @pytest.mark.cuda
@@ -299,6 +416,12 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
         cl.chol_solve_ls(L, D, b.double())
     with pytest.raises(ValueError, match="contiguous"):
         cl.chol_solve_ls(L.transpose(1, 2), D, b)
+    with pytest.raises(ValueError, match="does not match"):
+        cl.chol_solve_ls(L, torch.cat([D, D]), b)
+    with pytest.raises(ValueError, match="does not match"):
+        cl.chol_solve_ls(L, D, b[:, :100])
+    with pytest.raises(ValueError, match="mixed devices"):
+        cl.chol_solve_ls(L, D, b.cpu())
     with pytest.raises(ValueError, match="mixed devices"):
         cl.tri_solve_ls(L, D, b.cpu())
 
