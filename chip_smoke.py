@@ -9,8 +9,11 @@ orthant and on orthant + second-order cones + equality constraints.
 Phases (any failure exits non-zero and prints no result):
   0. environment and kernel build;
   1. K1 against its plain version at the solves' shapes (B=16 n=512,
-     the Schur complement's B=16 n=32) and a padded shape (B=3 n=200),
-     with times, plus the factor + 2 solves headline shape B=16 n=1024;
+     the Schur complement's B=16 n=32), a padded shape (B=3 n=200) and
+     two ragged single-block shapes (B=4 n=100, B=4 n=20), with times;
+     K1, K4, the plain version and cholesky_ex host-timed and by device
+     time at (16,512), (16,32), (3,200) and (16,128) (one diagonal block,
+     the chain's step); the factor + 2 solves headline shape B=16 n=1024;
      K2 against its plain version at (B, n, k) = (16,512,1), (16,512,32),
      (16,32,1), (16,32,32), (3,200,1), (2,130,3), (2,128,37),
      (2,256,300), (2,4096,1), (2,4096,32), with R contiguous, transposed,
@@ -37,8 +40,12 @@ Phases (any failure exits non-zero and prints no result):
      Schur complement (n=32) and K2 with k=p, K1-K3 launched;
   6. phase 5's problems on CPU tensors: same status, iterations within
      1, x within 1e-6.
-Each pass-1 breakdown prints K2's and K3's device time, launches and
-share.  The line before the card's line is the kernels line: per kernel
+Phases 4 and 6 run in two worker processes (spawned after the build, at
+lower priority, a few CPU threads each) beside phases 1-5, and are
+compared with the card's solves at the end; each phase prints the
+seconds since the start.
+Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
+and share.  The line before the card's line is the kernels line: per kernel
 its launches on the main path, its error against the plain version, its
 time, the plain version's and one PyTorch call's (median of 20), and its
 bound from the bytes and flops of the same shape.  The last line is
@@ -48,6 +55,8 @@ bound from the bytes and flops of the same shape.  The last line is
 
 import importlib.util
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -58,11 +67,19 @@ import torch
 B, N, M = 16, 512, 1024
 SEEDS = range(16)
 L_EQ, Q_EQ, P_EQ = 512, (64,) * 8, 32   # phase 5: m = 512 + 8 * 64 = M
+T0 = time.perf_counter()
+POOL = None     # the worker processes of phases 4 and 6
 
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
+    if POOL is not None:
+        POOL.terminate()
     sys.exit(1)
+
+
+def stamp(label):
+    print(f"elapsed {time.perf_counter() - T0:.1f} s: {label}", flush=True)
 
 
 def check(cond, msg):
@@ -152,7 +169,7 @@ def phase0():
 def phase1(dev):
     from kvxopt_tpu_torch.ops import chol_ls as cl
     rows = {}
-    for Bn, n in ((B, N), (3, 200), (B, P_EQ)):
+    for Bn, n in ((B, N), (3, 200), (B, P_EQ), (4, 100), (4, 20)):
         K = spd_batch(Bn, n, 1, dev)
         L, Dinv = cl.batched_cholesky_ls(K)
         Lr, _ = cl.batched_cholesky_ls_ref(K)
@@ -367,11 +384,10 @@ K2_TIMES = ((B, N, 1), (B, N, P_EQ), (B, P_EQ, 1), (B, P_EQ, P_EQ),
 K2_KEYS = ("chol_solve_kernel",)
 
 
-def profile_ms(fn, reps=20, keys=(), flush=None):
-    """Device time per call from one profiler window of `reps` calls:
-    (all kernels, the kernels whose name holds one of `keys`).  With
-    `flush` (run before each call, outside `keys`) only the second is
-    meaningful.  None where the profiler saw no device events."""
+def profile_split(fn, reps=20, flush=None):
+    """Device time per call by kernel name from one profiler window of
+    `reps` warm calls: {name: ms}, empty where the profiler saw no device
+    events.  `flush` runs before each call, inside the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -383,12 +399,73 @@ def profile_ms(fn, reps=20, keys=(), flush=None):
                 flush()
             fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kern) / reps / 1e3
-    mine = sum(e.self_device_time_total for e in kern
-               if any(k in e.key for k in keys)) / reps / 1e3
-    return (total, mine) if total > 0 else None
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            out[e.key] = out.get(e.key, 0.0) + \
+                e.self_device_time_total / reps / 1e3
+    return out
+
+
+def profile_ms(fn, reps=20, keys=(), flush=None):
+    """Device time per call from one profiler window of `reps` calls:
+    (all kernels, the kernels whose name holds one of `keys`).  With
+    `flush` (run before each call, outside `keys`) only the second is
+    meaningful.  None where the profiler saw no device events."""
+    split = profile_split(fn, reps, flush)
+    mine = sum(v for k, v in split.items() if any(s in k for s in keys))
+    return (sum(split.values()), mine) if split else None
+
+
+# K1's and K4's kernels in the profiler, this tree's and those of the
+# earlier design (chol_diag/panel/trailing_kernel per panel), so that
+# tools/kernel_compare.py can time an older checkout
+K1_KEYS = ("chol_warp_kernel", "chol_block_kernel", "chol_cluster_kernel",
+           "chol_tile_kernel", "chol_diag_kernel", "chol_panel_kernel",
+           "chol_trailing_kernel")
+# K1 and K4 at the solves' shapes (pass 1's K, the Schur complement, a
+# ragged n), at one diagonal block (the chain's step), and the factor-only
+# scaling rows
+K1_TIMES = ((B, N), (B, P_EQ), (3, 200), (B, 128))
+K1_SCALING = ((16, 1024), (8, 2048), (2, 4096))
+
+
+def k1_times(dev, shapes=K1_TIMES):
+    """K1, K4, the plain version and torch.linalg.cholesky_ex at `shapes`:
+    host-timed median of 20 (10 at n > 512), and warm device time per call
+    from one profiler window each, split by kernel (the wrapper's torch
+    copies included in the call's total)."""
+    from kvxopt_tpu_torch.ops import chol as ch, chol_ls as cl
+    rows = {}
+    for Bn, n in shapes:
+        K = spd_batch(Bn, n, 11, dev)
+        reps = 20 if n <= 512 else 10
+        fns = {"K1": lambda: cl.batched_cholesky_ls(K),
+               "K4": lambda: ch.batched_cholesky(K),
+               "plain": lambda: cl.batched_cholesky_ls_ref(K),
+               "cholesky_ex": lambda: torch.linalg.cholesky_ex(K)}
+        row = {}
+        for name, fn in fns.items():
+            ms = median_ms(fn, reps)
+            split = profile_split(fn, reps)
+            dev_ms = sum(split.values()) if split else None
+            kern = sum(v for k, v in split.items()
+                       if any(s in k for s in K1_KEYS))
+            row[name] = dict(ms=ms, dev=dev_ms, dev_kernels=kern,
+                             split={k[:60]: v for k, v in split.items()})
+            dtxt = ("device not measured (no device events)"
+                    if dev_ms is None else
+                    f"device {dev_ms:.4f} ms per call (" + ", ".join(
+                        f"{k[:40]} {v:.4f}" for k, v in sorted(
+                            split.items(), key=lambda kv: -kv[1])) + ")")
+            print(f"time {name} B={Bn} n={n}: host {ms:.4f} ms (median of "
+                  f"{reps}); {dtxt}", flush=True)
+        rows[(Bn, n)] = row
+        print(f"bound K1 B={Bn} n={n}: "
+              "{:.4f} ms ({})".format(*bound(*factor_work(Bn, n, True))),
+              flush=True)
+        del K
+    return rows
 
 
 def k2_times(dev):
@@ -641,7 +718,8 @@ def breakdown(name, dims, args):
     print(f"{name} profile pass 1 (profiler on): wall {wall:.4f} s, device "
           f"busy {busy:.4f} s ({100 * busy / wall:.1f}%), {len(kern)} "
           "kernels")
-    for kname, keys in (("K2", K2_KEYS), ("K3", ("tri_kernel",))):
+    for kname, keys in (("K1", K1_KEYS), ("K2", K2_KEYS),
+                        ("K3", ("tri_kernel",))):
         mine = [e for e in kern if any(k in e.key for k in keys)]
         t = sum(e.self_device_time_total for e in mine) / 1e6
         print(f"{name} profile pass 1: {kname} {t * 1e3:.2f} ms in "
@@ -652,19 +730,50 @@ def breakdown(name, dims, args):
               f"{e.key[:90]}")
 
 
-def cpu_phase(name, dims, data, gpu):
-    """The same problems on CPU tensors: the kernels' plain versions."""
+def slice_data(name):
+    """(dims, data) of a solve phase: its 16 seeded problems, stacked."""
+    from kvxopt_tpu_torch import ConeDims
+    if name == "slice":
+        dims, make = ConeDims(l=M), large_problem
+    else:
+        dims, make = ConeDims(l=L_EQ, q=Q_EQ), lqeq_problem
+    return dims, tuple(np.stack(a) for a in zip(*(make(s) for s in SEEDS)))
+
+
+def cpu_solve(name, threads):
+    """In a worker process: the phase's problems on CPU tensors, the
+    kernels' plain versions -> (x, iterations, status, seconds)."""
+    os.nice(10)
+    torch.set_num_threads(threads)
     from kvxopt_tpu_torch.convert import problem_to_torch, state_to_numpy
     from kvxopt_tpu_torch.parallel import batched_qp_solver_mixed
+    dims, data = slice_data(name)
     # facref explicit: on the card the "vmap" default resolves it on
     solve = batched_qp_solver_mixed(dims, {"facref": True},
                                     with_eq=len(data) == 6)
     t0 = time.perf_counter()
-    out = state_to_numpy(solve(*problem_to_torch(*data)))
-    x, it, status = out[0], out[4], out[5]
+    out = state_to_numpy(solve(*problem_to_torch(*data, device="cpu")))
+    return out[0], out[4], out[5], time.perf_counter() - t0
+
+
+def start_cpu_solves(names):
+    """Phases 4 and 6 in spawned worker processes (no CUDA state is
+    forked), sharing the cores the card's phases leave."""
+    global POOL
+    threads = max(1, ((os.cpu_count() or 4) - 2) // len(names))
+    POOL = multiprocessing.get_context("spawn").Pool(len(names))
+    return {n: POOL.apply_async(cpu_solve, (n, threads)) for n in names}
+
+
+def cpu_phase(name, pending, gpu):
+    """The card's solve against the same problems on CPU tensors."""
+    try:
+        x, it, status, secs = pending.get()
+    except Exception as e:  # noqa: BLE001  (the worker's error, reported)
+        fail(f"{name}: the CPU plain path raised {e!r}")
     xg, itg, stg = gpu
     dx = np.linalg.norm(xg - x, axis=1) / (1 + np.linalg.norm(x, axis=1))
-    print(f"{name} cpu plain path: {time.perf_counter() - t0:.1f} s, status "
+    print(f"{name} cpu plain path: {secs:.1f} s, status "
           f"{status.tolist()}, iterations {it.tolist()}, max "
           f"|x_gpu-x_cpu|/(1+|x_cpu|) {dx.max():.3e} (tol 1e-6)", flush=True)
     check((status == stg).all(), f"{name}: status differs from the CPU "
@@ -677,29 +786,32 @@ def cpu_phase(name, dims, data, gpu):
 def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
-    from kvxopt_tpu_torch import ConeDims
     dev = torch.device("cuda:0")
     phase0()
+    stamp("phase 0")
+    names = ("slice", "slice l+q+eq")
+    pending = start_cpu_solves(names)
     rows = phase1(dev)
+    k1_times(dev)
+    stamp("phase 1")
     rows["K4"], k4_launches = phase2(dev)
     scaling_rows(dev)
+    stamp("phase 2")
 
-    dims = ConeDims(l=M)
-    data = tuple(np.stack(a) for a in zip(*(large_problem(s)
-                                             for s in SEEDS)))
-    gpu, _, _ = solve_phase("slice", dev, dims, data)
-    cpu_phase("slice", dims, data, gpu)
-
-    dims_eq = ConeDims(l=L_EQ, q=Q_EQ)
-    data_eq = tuple(np.stack(a) for a in zip(*(lqeq_problem(s)
-                                                for s in SEEDS)))
-    gpu_eq, launches, shapes = solve_phase("slice l+q+eq", dev, dims_eq,
-                                           data_eq)
+    gpu, _, _ = solve_phase("slice", dev, *slice_data("slice"))
+    stamp("phase 3")
+    gpu_eq, launches, shapes = solve_phase("slice l+q+eq", dev,
+                                           *slice_data("slice l+q+eq"))
     check(shapes.get(("K1", P_EQ, 0), 0) > 0,
           "K1 never factored the Schur complement (n=p)")
     check(shapes.get(("K2", N, P_EQ), 0) > 0,
           "K2 never ran with k=p right-hand sides")
-    cpu_phase("slice l+q+eq", dims_eq, data_eq, gpu_eq)
+    stamp("phase 5")
+    for name, g in zip(names, (gpu, gpu_eq)):
+        cpu_phase(name, pending[name], g)
+    POOL.close()
+    POOL.join()
+    stamp("phases 4 and 6")
 
     launches["K4"] = k4_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",

@@ -34,18 +34,20 @@ def options_from(obj) -> Options:
     return Options(**d)
 
 
-def problem_to_torch(*arrays, device="cpu", dtype=torch.float64):
+def problem_to_torch(*arrays, device="cuda", dtype=torch.float64):
     """numpy (or array-like) problem data, (P, q, G, h) or
-    (P, q, G, h, A, b) -> tensors on `device`."""
+    (P, q, G, h, A, b) -> tensors on `device`: the card unless the caller
+    names another (where there is no card, that raises)."""
     return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
                  for a in arrays)
 
 
-def scaling_from_jax(dims, d, beta, v, device="cpu", dtype=torch.float64):
+def scaling_from_jax(dims, d, beta, v, device="cuda", dtype=torch.float64):
     """The port's NTScaling from the JAX package's fields, each with a
     leading batch axis (as jax.vmap returns them): d (B, l), beta a tuple
     of (B,) per q block, v a tuple of (B, m) per q block.  The port keeps
-    beta and v per group of equal-size blocks."""
+    beta and v per group of equal-size blocks.  The tensors go to the card
+    unless the caller names another device."""
     dims = dims_from(dims)
 
     def t(a):

@@ -108,56 +108,6 @@ constexpr int cs_smem_floats(int kc, int npad, bool gy)
            cs_parts(kc) * CS_R * kc + (gy ? 0 : npad * kc);
 }
 
-// mbarriers and st.async: the exchange between the CTAs of a cluster.  A
-// receiver arms its barrier for the bytes of one exchange; every sender's
-// st.async completes its share of them.
-__device__ __forceinline__ unsigned smem_u32(const void* p)
-{
-    return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar)
-{
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(1u) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arm(uint64_t* bar, unsigned bytes)
-{
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity)
-{
-    unsigned done = 0;
-    while (!done)
-        asm volatile("{\n .reg .pred p;\n"
-                     " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64"
-                     " p, [%1], %2;\n"
-                     " selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(smem_u32(bar)), "r"(parity)
-                     : "memory");
-}
-
-// the shared::cluster address of local shared address `addr` in CTA `rank`
-__device__ __forceinline__ unsigned mapa(unsigned addr, unsigned rank)
-{
-    unsigned r;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(r) : "r"(addr), "r"(rank));
-    return r;
-}
-
-__device__ __forceinline__ void st_async4(unsigned addr, float4 v,
-                                          unsigned bar)
-{
-    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes"
-                 ".v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
-                 :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w),
-                    "r"(bar) : "memory");
-}
-
 // KC = 1, forward (16 x 128 tile a, row r = tid / 16): acc[0] += a[r] . y
 // over depths 4q.. and 64 + 4q.. (q = tid % 16).  y is in device memory
 // when GLB, read there as float4 when Y4.

@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: cp.async copies into shared
-// memory with zero-fill, and the once-per-process shared-memory limit.
+// memory with zero-fill, mbarriers across a cluster, and the
+// once-per-process shared-memory limit.
 //
 // Everything here is static or in an anonymous namespace: each source
 // that includes this header gets its own copy and builds as a separate
@@ -60,6 +61,68 @@ __device__ __forceinline__ void tile_async(float* dst, int dld,
         cp_async_zfill<VEC>(dst + r * dld + c, ok ? src + r * ld + c : src,
                             ok);
     }
+}
+
+// mbarriers, st.async and remote arrivals: the exchanges between the CTAs
+// of a cluster.  A receiver arms its barrier for the bytes of one exchange
+// and every sender's st.async completes its share of them (K2), or its
+// peers arrive on it once their writes to device memory are done (K1,
+// K4).
+__device__ __forceinline__ unsigned smem_u32(const void* p)
+{
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count = 1)
+{
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arm(uint64_t* bar, unsigned bytes)
+{
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity)
+{
+    unsigned done = 0;
+    while (!done)
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64"
+                     " p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(smem_u32(bar)), "r"(parity)
+                     : "memory");
+}
+
+// the shared::cluster address of local shared address `addr` in CTA `rank`
+__device__ __forceinline__ unsigned mapa(unsigned addr, unsigned rank)
+{
+    unsigned r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(r) : "r"(addr), "r"(rank));
+    return r;
+}
+
+__device__ __forceinline__ void st_async4(unsigned addr, float4 v,
+                                          unsigned bar)
+{
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes"
+                 ".v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
+                 :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w),
+                    "r"(bar) : "memory");
+}
+
+// Arrive, with release at cluster scope, on the mbarrier at shared::cluster
+// address `bar` (from mapa): the caller's earlier writes, and those its
+// CTA ordered before it by a barrier, become visible to the CTA that
+// waits on it.
+__device__ __forceinline__ void mbar_arrive_remote(unsigned bar)
+{
+    asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64"
+                 " _, [%0];\n" :: "r"(bar) : "memory");
 }
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }

@@ -2,24 +2,23 @@
 plain PyTorch version.
 
 Counterpart of kvxopt_tpu/ops/chol.py.  The kernel lives in csrc/chol.cu
-(built by ops/_build.py) and shares K1's diagonal-block, panel and
-trailing kernels (csrc/chol_factor.cuh); its own launch path keeps each
-panel's diagonal-block inverse in a (B,128,128) scratch and returns no
-Dinv.
+(built by ops/_build.py) and runs K1's factorization (csrc/chol_factor.cuh),
+keeping each panel's diagonal-block inverse in a scratch of two (B,128,128)
+slots; it returns no Dinv.
 
-The wrapper keeps the JAX function's contract: f32 (B,n,n) SPD matrices,
-n padded to a multiple of 128 with identity on the padded diagonal, tril
-of the factor cropped to n returned.  A matrix that is not positive
-definite gives NaN.  A tensor on the CPU goes to the plain version; a CUDA
-tensor goes to the kernel or raises.
+The wrapper keeps the JAX function's contract: f32 (B,n,n) SPD matrices
+in, the lower factor (B,n,n) out with zeros above the diagonal.  A matrix
+that is not positive definite gives NaN.  A tensor on the CPU goes to the
+plain version; a CUDA tensor goes to the kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .chol_ls import (BS, _check, _lib, _on_cpu, _pad_identity, _raise_on,
-                      _stream, cholesky_nan, count_launch)
+from .chol_ls import (BS, _check_square, _factor_path, _lib, _on_cpu,
+                      _pad_identity, _raise_on, _stream, cholesky_nan,
+                      count_launch)
 
 
 def cholesky_kernel_available():
@@ -36,18 +35,17 @@ def batched_cholesky_ref(A):
 
 
 def batched_cholesky(A):
-    """Lower Cholesky factors (B,n,n) of a batch of SPD matrices, f32."""
+    """Lower Cholesky factors (B,n,n) of a batch of SPD matrices, f32.
+
+    On the card, kernel K4 reads A in place and writes L directly (K1's
+    factorization, keeping each diagonal block's inverse in a scratch)."""
     if _on_cpu(A):
         return batched_cholesky_ref(A)
-    _check(A, "A", 3)
-    B, n, n2 = A.shape
-    if n != n2:
-        raise ValueError(f"A: expected square matrices, got {tuple(A.shape)}")
-    npad = -(-n // BS) * BS
-    O = _pad_identity(A, npad)
-    scratch = torch.empty((B, BS, BS), dtype=A.dtype, device=A.device)
-    rc = _lib().kvx_chol(O.data_ptr(), scratch.data_ptr(), B, npad,
-                         _stream())
+    B, n = _check_square(A)
+    L = torch.empty_like(A)
+    scratch = torch.empty((2, B, BS, BS), dtype=A.dtype, device=A.device)
+    rc = _lib().kvx_chol(A.data_ptr(), L.data_ptr(), scratch.data_ptr(), B,
+                         n, _factor_path(B, n, A.device), _stream())
     _raise_on(rc, "batched_cholesky")
     count_launch("K4", n)
-    return torch.tril(O[:, :n, :n])
+    return L

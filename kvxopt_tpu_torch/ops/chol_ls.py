@@ -30,6 +30,11 @@ BS = 128
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 LAUNCH_SHAPES = collections.Counter()
 
+# Which of K1/K4's two launch paths runs where n > 128: None (the rule in
+# _factor_path), or 0 (one cluster launch) / 1 (one launch per panel
+# step).  Not a tuning option: only a hook by which a test forces a path.
+_FACTOR_PATH = None
+
 # Shared memory, in bytes, that one CTA of K2 may use to keep the solved
 # part of its tile; where it needs more, that part goes through X in
 # device memory instead.  Its value is the card's own limit per CTA (227
@@ -55,9 +60,9 @@ def _lib():
     lib = load_library()
     if not getattr(lib, "_kvx_typed", False):
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.kvx_chol_ls.argtypes = [vp, vp, ci, ci, vp]
+        lib.kvx_chol_ls.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.kvx_chol_ls.restype = ci
-        lib.kvx_chol.argtypes = [vp, vp, ci, ci, vp]
+        lib.kvx_chol.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.kvx_chol.restype = ci
         lib.kvx_chol_solve.argtypes = [vp, vp, vp, vp, ci, ci, ci, ll, ll,
                                        ci, vp]
@@ -148,24 +153,43 @@ def batched_cholesky_ls_ref(A):
     return Lp[:, :n, :n].contiguous(), Dinv
 
 
-def batched_cholesky_ls(A):
-    """Lower Cholesky factors of a batch of SPD matrices (B,n,n) f32 and
-    the inverses of their 128-wide diagonal blocks (nb,B,128,128)."""
-    if _on_cpu(A):
-        return batched_cholesky_ls_ref(A)
+def _check_square(A):
     _check(A, "A", 3)
     B, n, n2 = A.shape
     if n != n2:
         raise ValueError(f"A: expected square matrices, got {tuple(A.shape)}")
-    nb = -(-n // BS)
-    npad = nb * BS
-    O = _pad_identity(A, npad)
-    Dinv = torch.empty((nb, B, BS, BS), dtype=A.dtype, device=A.device)
-    rc = _lib().kvx_chol_ls(O.data_ptr(), Dinv.data_ptr(), B, npad,
-                            _stream())
+    return B, n
+
+
+def _factor_path(B, n, device):
+    """K1/K4's launch path for n > 128: 0, one launch of a cluster of 8
+    (or 4) CTAs per matrix, where the chain of diagonal blocks bounds the
+    factorization (n <= 512) and the clusters of 4 are all resident at
+    once; else 1, one launch per panel step with the grid over tiles."""
+    if _FACTOR_PATH is not None:
+        return _FACTOR_PATH
+    return 0 if n <= 512 and 4 * B <= _sm_count(device.index) else 1
+
+
+def batched_cholesky_ls(A):
+    """Lower Cholesky factors of a batch of SPD matrices (B,n,n) f32 and
+    the inverses of their 128-wide diagonal blocks (nb,B,128,128).
+
+    On the card, kernel K1 reads A in place (its lower triangle only) and
+    writes L, zeros above the diagonal included, and Dinv directly: a call
+    is two torch.empty and one launch, where n <= 128 or the cluster path
+    runs (n <= 512), else three per 128-wide panel step."""
+    if _on_cpu(A):
+        return batched_cholesky_ls_ref(A)
+    B, n = _check_square(A)
+    L = torch.empty_like(A)
+    Dinv = torch.empty((-(-n // BS), B, BS, BS), dtype=A.dtype,
+                       device=A.device)
+    rc = _lib().kvx_chol_ls(A.data_ptr(), L.data_ptr(), Dinv.data_ptr(), B,
+                            n, _factor_path(B, n, A.device), _stream())
     _raise_on(rc, "batched_cholesky_ls")
     count_launch("K1", n)
-    return torch.tril(O[:, :n, :n]), Dinv
+    return L, Dinv
 
 
 # ---------------------------------------------------------------------------

@@ -165,7 +165,7 @@ def test_scale_matches_jax(d, trans, inverse):
     JD, TD = jc.ConeDims(**d), tc.ConeDims(**d)
     s, z, u = interior(d, 14), interior(d, 15), anyvec(d, 16)
     Wj, _ = jax_scaling(JD, s, z)
-    W = scaling_from_jax(TD, Wj.d, Wj.beta, Wj.v)
+    W = scaling_from_jax(TD, Wj.d, Wj.beta, Wj.v, device="cpu")
     got = tc.scale(TD, W, T(u), trans=trans, inverse=inverse)
     want = np.asarray(jax.vmap(
         lambda Wl, ul: jc.scale(JD, Wl, ul, trans=trans, inverse=inverse))(
@@ -194,7 +194,7 @@ def test_wtw_scale_cols_matches_jax(d):
     s, z = interior(d, 19), interior(d, 20)
     G = np.random.default_rng(21).standard_normal((B, JD.size, 5))
     Wj, _ = jax_scaling(JD, s, z)
-    W = scaling_from_jax(TD, Wj.d, Wj.beta, Wj.v)
+    W = scaling_from_jax(TD, Wj.d, Wj.beta, Wj.v, device="cpu")
     got = tc.wtw_scale_cols(TD, W, T(G))
     want = np.asarray(jax.vmap(lambda Wl, Gl: jc.wtw_scale_cols(JD, Wl, Gl))(
         jax.tree_util.tree_map(jnp.asarray, Wj), jnp.asarray(G)))
@@ -208,6 +208,6 @@ def test_scaling_round_trips_through_convert():
     d = DIMS[1]
     TD = tc.ConeDims(**d)
     W, _ = tc.compute_scaling(TD, T(interior(d, 22)), T(interior(d, 23)))
-    W2 = scaling_from_jax(TD, *scaling_to_jax(TD, W))
+    W2 = scaling_from_jax(TD, *scaling_to_jax(TD, W), device="cpu")
     for a, b in zip(W.beta + W.v + (W.d,), W2.beta + W2.v + (W2.d,)):
         assert torch.equal(a, b)

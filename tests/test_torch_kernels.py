@@ -68,7 +68,8 @@ def dinv_identity_err(L, Dinv):
     return err
 
 
-@pytest.mark.parametrize("B,n", SHAPES)
+# n = 32 is the Schur complement's single block, 96 a ragged single block
+@pytest.mark.parametrize("B,n", SHAPES + [(16, 32), (2, 96)])
 def test_factor_plain_matches_jax(B, n):
     Lj, Dj = jax_factors(B, n)
     Lt, Dt = cl.batched_cholesky_ls(torch.from_numpy(spd(B, n)))
@@ -172,7 +173,7 @@ def test_tri_plain_matches_jax(B, n, k, trans):
     assert np.abs(xt - xj).max() / (np.abs(xj).max() + 1) < 1e-4
 
 
-@pytest.mark.parametrize("B,n", [(2, 128), (1, 200), (3, 64)])
+@pytest.mark.parametrize("B,n", [(2, 128), (1, 200), (3, 64), (16, 32)])
 def test_k4_plain_matches_jax(B, n):
     """K4's plain version against the JAX batched_cholesky in interpret
     mode, at tests/test_ops.py's shapes (n=200 and n=64 are padded)."""
@@ -404,12 +405,19 @@ def test_indefinite_lane_gives_nan_on_card(cuda, k):
 
 
 @pytest.mark.cuda
-def test_kernel_wrappers_refuse_bad_inputs(cuda):
-    K = torch.from_numpy(spd(2, 128)).to(cuda)
-    with pytest.raises(TypeError):
-        cl.batched_cholesky_ls(K.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        cl.batched_cholesky_ls(K.transpose(1, 2))
+@pytest.mark.parametrize("n", [32, 128, 512])
+def test_kernel_wrappers_refuse_bad_inputs(cuda, n):
+    """At the warp (n = 32), block (128) and cluster (512) paths."""
+    K = torch.from_numpy(spd(2, n)).to(cuda)
+    for f in (cl.batched_cholesky_ls, ch.batched_cholesky):
+        with pytest.raises(TypeError):
+            f(K.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            f(K.transpose(1, 2))
+        with pytest.raises(ValueError, match="square"):
+            f(K[:, :, :16].contiguous())
+    if n != 128:
+        return
     L, D = cl.batched_cholesky_ls(K)
     b = torch.ones((2, 128), device=cuda)
     with pytest.raises(TypeError):
@@ -457,3 +465,65 @@ def test_k4_wrapper_refuses_bad_inputs(cuda):
         ch.batched_cholesky(K.transpose(1, 2))
     with pytest.raises(ValueError, match="square"):
         ch.batched_cholesky(K[:, :, :64].contiguous())
+
+
+# n where K1's paths and edges meet: one warp (1, 31, 32), one block (33,
+# 96, 127, 128), the cluster path (129: 4-byte copies, 200, 512) and the
+# per-step path (640), each ragged and full
+K1_NS = [1, 31, 32, 33, 96, 127, 128, 129, 200, 512, 640]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K1_NS)
+def test_k1_contract_on_card(cuda, n):
+    """K1 against its plain version; L exactly lower triangular; the
+    padded part of the last Dinv block exactly the identity; A untouched;
+    one wrapper launch counted per call."""
+    K = spd_on(3, n, cuda)
+    K0 = K.clone()
+    before = cl.LAUNCHES["K1"]
+    L, D = cl.batched_cholesky_ls(K)
+    torch.cuda.synchronize()
+    assert cl.LAUNCHES["K1"] == before + 1
+    assert torch.equal(K, K0)
+    Lr, _ = cl.batched_cholesky_ls_ref(K)
+    assert L.shape == (3, n, n) and L.is_contiguous()
+    assert float((L - Lr).abs().max() / Lr.abs().max()) < 1e-5
+    assert torch.equal(L, torch.tril(L))
+    assert dinv_identity_err(L.cpu(), D.cpu()) < 1e-4
+    h = n - 128 * (D.shape[0] - 1)
+    last = D[-1].cpu()
+    eye = torch.eye(128)
+    assert torch.equal(last[:, h:, h:], eye[h:, h:].expand(3, -1, -1))
+    assert torch.equal(last[:, :h, h:], torch.zeros(3, h, 128 - h))
+    assert torch.equal(last[:, h:, :h], torch.zeros(3, 128 - h, h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", [0, 1])
+@pytest.mark.parametrize("n", [330, 640])
+def test_factor_paths_on_card(cuda, monkeypatch, n, path):
+    """The cluster path (0) and the per-step path (1), forced: each agrees
+    with the plain version, and K4's L is bit-equal to K1's."""
+    monkeypatch.setattr(cl, "_FACTOR_PATH", path)
+    K = spd_on(2, n, cuda)
+    L, D = cl.batched_cholesky_ls(K)
+    Lr, _ = cl.batched_cholesky_ls_ref(K)
+    assert float((L - Lr).abs().max() / Lr.abs().max()) < 1e-5
+    assert torch.equal(L, torch.tril(L))
+    assert dinv_identity_err(L.cpu(), D.cpu()) < 1e-4
+    assert torch.equal(ch.batched_cholesky(K), L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bad", [(32, 20), (512, 300)])
+def test_nan_lane_leaves_neighbour_finite_on_card(cuda, n, bad):
+    """A negative pivot gives NaN in its lane only, in K1 and K4."""
+    K = spd(2, n)
+    K[1, bad, bad] = -1.0
+    K = torch.from_numpy(K).to(cuda)
+    for L in (cl.batched_cholesky_ls(K)[0], ch.batched_cholesky(K)):
+        assert bool(torch.isfinite(L[0]).all())
+        assert bool(torch.isnan(L[1]).any())
+        Lr = ch.batched_cholesky_ref(K[:1])
+        assert float((L[:1] - Lr).abs().max() / Lr.abs().max()) < 1e-5

@@ -68,7 +68,7 @@ def jax_solve(name, G, A, P, s, z, bx, by, bz, **kw):
 
 
 def torch_solve(name, Wj, G, A, P, s, z, bx, by, bz, **kw):
-    W = scaling_from_jax(TD, Wj.d, Wj.beta, Wj.v)
+    W = scaling_from_jax(TD, Wj.d, Wj.beta, Wj.v, device="cpu")
     G, A, P, bx, by, bz = (torch.from_numpy(a)
                            for a in (G, A, P, bx, by, bz))
     f = tk.make_kkt_solver(name, TD, G, A, P, **kw)
@@ -77,7 +77,7 @@ def torch_solve(name, Wj, G, A, P, s, z, bx, by, bz, **kw):
 
 def newton_residuals(W, G, A, P, ux, uy, uz, bx, by, bz):
     """P ux + A'uy + G'uz - bx, A ux - by, G ux - W'W uz - bz."""
-    W = scaling_from_jax(TD, W.d, W.beta, W.v)
+    W = scaling_from_jax(TD, W.d, W.beta, W.v, device="cpu")
     wtw = tc.scale(TD, W, tc.scale(TD, W, torch.from_numpy(uz)),
                    trans=True).numpy()
     r1 = (np.einsum("bij,bj->bi", P, ux) + np.einsum("bji,bj->bi", A, uy)

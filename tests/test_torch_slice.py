@@ -54,7 +54,7 @@ SHAPES = [(4, 16, 32), (2, 130, 260)]
 def test_mixed_driver_matches_jax(B, n, m):
     data = problems(B, n, m)
     solve = tb.batched_qp_solver_mixed(ConeDims(l=m))
-    port = state_to_numpy(solve(*problem_to_torch(*data)))
+    port = state_to_numpy(solve(*problem_to_torch(*data, device="cpu")))
     ref = jb.batched_qp_solver_mixed(JaxDims(l=m))(
         *(jnp.asarray(a) for a in data))
     compare(port, ref)
@@ -66,7 +66,7 @@ def test_mixed_driver_matches_jax(B, n, m):
 def test_chol2_driver_matches_jax(B, n, m):
     data = problems(B, n, m, seed0=10)
     port = state_to_numpy(tb.batched_qp_solver(ConeDims(l=m), "chol2")(
-        *problem_to_torch(*data)))
+        *problem_to_torch(*data, device="cpu")))
     ref = jb.batched_qp_solver(JaxDims(l=m), "chol2")(
         *(jnp.asarray(a) for a in data))
     compare(port, ref)
@@ -82,7 +82,7 @@ def test_pass1_with_factor_refinement_matches_jax(B, n, m):
     data = problems(B, n, m)
     port = state_to_numpy(tb.batched_qp_solver(
         ConeDims(l=m), "chol2_mixed_nofb", Options(ozaki=True, facref=True))(
-            *problem_to_torch(*data)))
+            *problem_to_torch(*data, device="cpu")))
     ref = jb.batched_qp_solver(
         JaxDims(l=m), "chol2_mixed_nofb",
         JaxOptions(ozaki=True, facref=True))(*(jnp.asarray(a) for a in data))
@@ -94,7 +94,7 @@ def test_entry_problem_single_instance_mixed():
     P, q, G, h = (np.asarray(a)[0] for a in graft._example_qp(
         1, 8, 12, jnp.float64))
     port = tb.make_qp_solver(ConeDims(l=12), "chol2_mixed")(
-        *problem_to_torch(P, q, G, h))
+        *problem_to_torch(P, q, G, h, device="cpu"))
     ref = jb.make_qp_solver(JaxDims(l=12), "chol2_mixed")(
         *(jnp.asarray(a) for a in (P, q, G, h)))
     port = state_to_numpy(port)
@@ -128,3 +128,18 @@ def test_unported_inputs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve(*(torch.zeros(s) for s in ((2, 2), (2,), (3, 2), (3,))),
               torch.ones((1, 2)), torch.ones(1))
+
+
+def test_problem_to_torch_defaults_to_the_card():
+    """A caller who names no device gets the card: where there is none,
+    the conversion raises instead of handing back CPU tensors."""
+    from kvxopt_tpu_torch.convert import problem_to_torch, scaling_from_jax
+    P = np.eye(3)
+    if torch.cuda.is_available():
+        assert problem_to_torch(P)[0].device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError)):
+        problem_to_torch(P)
+    with pytest.raises((RuntimeError, AssertionError)):
+        scaling_from_jax(ConeDims(l=2), np.ones((1, 2)), (), ())
+    assert problem_to_torch(P, device="cpu")[0].device.type == "cpu"

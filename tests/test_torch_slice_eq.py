@@ -73,7 +73,7 @@ def test_make_qp_solver_lqeq_matches_jax():
     data = lqeq_problems(**SMALL)
     dims = dict(l=SMALL["l"], q=SMALL["q"])
     port = state_to_numpy(tb.make_qp_solver(ConeDims(**dims), with_eq=True)(
-        *problem_to_torch(*data)))
+        *problem_to_torch(*data, device="cpu")))
     ref = jax.vmap(jb.make_qp_solver(JaxDims(**dims), with_eq=True))(
         *(jnp.asarray(a) for a in data))
     compare(port, ref)
@@ -85,7 +85,7 @@ def test_make_qp_solver_lqeq_other_strategies_match_jax(name):
     data = lqeq_problems(**SMALL, seed0=20)
     dims = dict(l=SMALL["l"], q=SMALL["q"])
     port = state_to_numpy(tb.make_qp_solver(ConeDims(**dims), name)(
-        *problem_to_torch(*data)))
+        *problem_to_torch(*data, device="cpu")))
     ref = jax.vmap(jb.make_qp_solver(JaxDims(**dims), name))(
         *(jnp.asarray(a) for a in data))
     compare(port, ref)
@@ -95,7 +95,7 @@ def test_mixed_driver_lqeq_matches_jax():
     data = lqeq_problems(**SMALL, seed0=10)
     dims = dict(l=SMALL["l"], q=SMALL["q"])
     solve = tb.batched_qp_solver_mixed(ConeDims(**dims), with_eq=True)
-    port = state_to_numpy(solve(*problem_to_torch(*data)))
+    port = state_to_numpy(solve(*problem_to_torch(*data, device="cpu")))
     ref = jb.batched_qp_solver_mixed(JaxDims(**dims), with_eq=True)(
         *(jnp.asarray(a) for a in data))
     compare(port, ref)
@@ -108,7 +108,7 @@ def test_single_instance_with_eq():
     P, q, G, h, A, b = (a[0] for a in lqeq_problems(**SMALL, seed0=30))
     dims = dict(l=SMALL["l"], q=SMALL["q"])
     port = state_to_numpy(tb.make_qp_solver(ConeDims(**dims))(
-        *problem_to_torch(P, q, G, h, A, b)))
+        *problem_to_torch(P, q, G, h, A, b, device="cpu")))
     ref = jb.make_qp_solver(JaxDims(**dims))(
         *(jnp.asarray(a) for a in (P, q, G, h, A, b)))
     assert port[0].shape == (16,) and port[1].shape == (3,)
@@ -124,7 +124,7 @@ def test_socp_batch_matches_jax():
     data = _socp_batch(16, 64, 8, 8, 0)
     dims = dict(l=0, q=(8,) * 8)
     port = state_to_numpy(tb.batched_qp_solver(ConeDims(**dims))(
-        *problem_to_torch(*data)))
+        *problem_to_torch(*data, device="cpu")))
     ref = jb.batched_qp_solver(JaxDims(**dims))(
         *(jnp.asarray(a) for a in data))
     compare(port, ref)
@@ -156,7 +156,8 @@ def test_pass1_with_factor_refinement_lqeq_matches_jax(B, n, l, q, p):
     data = lqeq_problems(B, n, l, q, p)
     port = state_to_numpy(tb.batched_qp_solver(
         ConeDims(l=l, q=q), "chol2_mixed_nofb",
-        Options(ozaki=True, facref=True))(*problem_to_torch(*data)))
+        Options(ozaki=True, facref=True))(
+            *problem_to_torch(*data, device="cpu")))
     ref = jb.batched_qp_solver(
         JaxDims(l=l, q=q), "chol2_mixed_nofb",
         JaxOptions(ozaki=True, facref=True))(*(jnp.asarray(a) for a in data))
