@@ -2,7 +2,8 @@
 against their plain PyTorch versions, and drives the port's main paths
 on one GPU: the kernel entry point kvxopt_tpu_torch.ops.batched_cholesky
 (K4) and the two-pass batched mixed-precision cone-QP solve, on the
-orthant and on orthant + second-order cones + equality constraints.
+orthant, on orthant + second-order cones + equality constraints, and on
+orthant + second-order + semidefinite cones.
 
     python3 chip_smoke.py
 
@@ -39,16 +40,30 @@ Phases (any failure exits non-zero and prints no result):
      Ax=b residuals < 1e-6, s and z in the cones, K1 launched on the
      Schur complement (n=32) and K2 with k=p, K1-K3 launched;
   6. phase 5's problems on CPU tensors: same status, iterations within
+     1, x within 1e-6;
+  7. "slice l+q+s": batched_qp_solver_mixed on 16 random QPs with n=512,
+     l=256, q=[64]*4, s=[16]*2 (m=1024), no equality rows: every lane
+     optimal, stationarity and Gx+s=h residuals < 1e-6, s and z in the
+     cones (the s blocks' eigenvalues included), K1-K3 launched; one
+     lane with NaN in an s block gives NaN on that lane alone in
+     max_step, max_step_eig and compute_scaling, without a raise;
+  8. batched_qp_solver with no strategy named (chol) on phase 7's
+     problems: every lane optimal, x within 1e-6 of phase 7's;
+  9. the ldl and ldl2 strategies at B=4 n=64 l=64 q=(16,16) s=(8,8) on
+     the card against the same solves on CPU tensors;
+ 10. phase 7's problems on CPU tensors: same status, iterations within
      1, x within 1e-6.
-Phases 4 and 6 run in two worker processes (spawned after the build, at
-lower priority, a few CPU threads each) beside phases 1-5, and are
-compared with the card's solves at the end; each phase prints the
+Phases 4, 6 and 10 run in three worker processes (spawned after the
+build, at lower priority, a few CPU threads each) beside phases 1-9, and
+are compared with the card's solves at the end; each phase prints the
 seconds since the start.
 Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
-and share.  The line before the card's line is the kernels line: per kernel
-its launches on the main path, its error against the plain version, its
-time, the plain version's and one PyTorch call's (median of 20), and its
-bound from the bytes and flops of the same shape.  The last line is
+and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
+synchronizing calls per IPM iteration.  The line before the card's line
+is the kernels line: per kernel its launches on the main path (phase 7;
+K4: phase 2), its error against the plain version, its time, the plain
+version's and one PyTorch call's (median of 20), and its bound from the
+bytes and flops of the same shape.  The last line is
 {"ok": true, "device": {...}}; the line before it is
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
 """
@@ -67,8 +82,9 @@ import torch
 B, N, M = 16, 512, 1024
 SEEDS = range(16)
 L_EQ, Q_EQ, P_EQ = 512, (64,) * 8, 32   # phase 5: m = 512 + 8 * 64 = M
+L_S, Q_S, S_S = 256, (64,) * 4, (16,) * 2  # phase 7: m = 256+256+512 = M
 T0 = time.perf_counter()
-POOL = None     # the worker processes of phases 4 and 6
+POOL = None     # the worker processes of phases 4, 6 and 10
 
 
 def fail(msg):
@@ -146,6 +162,40 @@ def lqeq_problem(seed, n=N, l=L_EQ, qs=Q_EQ, p=P_EQ):
         ofs += qm
     A = rng.standard_normal((p, n))
     return P, q, G, G @ x0 + s0, A, A @ x0
+
+
+def lqs_problem(seed, n=N, l=L_S, qs=Q_S, ss=S_S):
+    """Feasible l + q + s QP, no equality rows: P = MM' + nI and q as
+    bench._large_problem; G standard normal with each column's s rows
+    symmetrized block by block, x0 = 0.1 randn; s0 uniform(0.5, 1.5) on
+    the orthant, SOC blocks as lqeq_problem builds them, and M M' + I
+    with M = 0.2 randn(m, m) on each s block; h = G x0 + s0."""
+    rng = np.random.default_rng(seed)
+    m = l + sum(qs) + sum(k * k for k in ss)
+    Mx = rng.standard_normal((n, n))
+    P = Mx @ Mx.T + n * np.eye(n)
+    q = rng.standard_normal(n)
+    G = rng.standard_normal((m, n))
+    ofs = l + sum(qs)
+    for k in ss:
+        X = G[ofs:ofs + k * k].reshape(k, k, n)
+        G[ofs:ofs + k * k] = (0.5 * (X + X.transpose(1, 0, 2))).reshape(
+            k * k, n)
+        ofs += k * k
+    x0 = 0.1 * rng.standard_normal(n)
+    s0 = np.empty(m)
+    s0[:l] = rng.uniform(0.5, 1.5, l)
+    ofs = l
+    for qm in qs:
+        u = rng.standard_normal(qm - 1) * 0.3
+        s0[ofs] = np.linalg.norm(u) + rng.uniform(0.5, 1.5)
+        s0[ofs + 1:ofs + qm] = u
+        ofs += qm
+    for k in ss:
+        Ms = 0.2 * rng.standard_normal((k, k))
+        s0[ofs:ofs + k * k] = (Ms @ Ms.T + np.eye(k)).ravel()
+        ofs += k * k
+    return P, q, G, G @ x0 + s0
 
 
 def phase0():
@@ -685,14 +735,29 @@ def solve_phase(name, dev, dims, data):
     return (x, it, status), launches, shapes
 
 
+# cuSOLVER's kernels behind torch.linalg.eigh / eigvalsh (Jacobi for
+# small batched matrices, else tridiagonal reduction and divide and
+# conquer) and behind cholesky_ex, by substrings of their names
+EIGH_KEYS = ("syevj", "syevd", "sytrd", "stedc", "ormtr", "steqr")
+POTRF_KEYS = ("potrf",)
+# host-side events that say how often pass 1 waits for the card, and the
+# torch.linalg calls that may wait (eigh checks its info on the host)
+HOST_KEYS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaMemcpyAsync", "aten::linalg_eigh", "aten::linalg_eigvalsh",
+             "aten::linalg_cholesky_ex", "aten::linalg_svd")
+
+
 def breakdown(name, dims, args):
-    """Each pass alone on all lanes, and the device's share of pass 1."""
+    """Each pass alone on all lanes, and the device's share of pass 1:
+    K1-K3's and cuSOLVER's eigh and potrf device time and launches, and
+    the host's synchronizing calls per IPM iteration."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from kvxopt_tpu_torch.parallel import batched_qp_solver
     from kvxopt_tpu_torch.solvers.coneprog import Options
     fast = batched_qp_solver(dims, "chol2_mixed_nofb", Options(ozaki=True))
     slow = batched_qp_solver(dims, "chol2")
+    iters = None
     for pname, fn in (("pass 1 chol2_mixed_nofb", fast),
                       ("pass 2 chol2 (f64)", slow)):
         torch.cuda.synchronize()
@@ -702,14 +767,15 @@ def breakdown(name, dims, args):
         print(f"{name} breakdown {pname} on all {B} lanes: "
               f"{time.perf_counter() - t0:.4f} s, iterations "
               f"{out[4].tolist()}, status {out[5].tolist()}")
+        iters = iters or int(out[4].max())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fast(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     if busy == 0:
         print(f"{name} profile pass 1: device time not measured (no device "
@@ -719,12 +785,18 @@ def breakdown(name, dims, args):
           f"busy {busy:.4f} s ({100 * busy / wall:.1f}%), {len(kern)} "
           "kernels")
     for kname, keys in (("K1", K1_KEYS), ("K2", K2_KEYS),
-                        ("K3", ("tri_kernel",))):
-        mine = [e for e in kern if any(k in e.key for k in keys)]
+                        ("K3", ("tri_kernel",)), ("eigh", EIGH_KEYS),
+                        ("potrf", POTRF_KEYS)):
+        mine = [e for e in kern if any(k in e.key.lower() for k in keys)]
         t = sum(e.self_device_time_total for e in mine) / 1e6
         print(f"{name} profile pass 1: {kname} {t * 1e3:.2f} ms in "
               f"{sum(e.count for e in mine)} launches, "
               f"{100 * t / busy:.2f}% of device busy time")
+    host = {e.key: e.count for e in events
+            if e.device_type == DeviceType.CPU and e.key in HOST_KEYS}
+    print(f"{name} profile pass 1 host calls over {iters} IPM iterations: " +
+          ", ".join(f"{k} {v} ({v / iters:.1f} per iteration)"
+                    for k, v in sorted(host.items())))
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
@@ -733,11 +805,96 @@ def breakdown(name, dims, args):
 def slice_data(name):
     """(dims, data) of a solve phase: its 16 seeded problems, stacked."""
     from kvxopt_tpu_torch import ConeDims
-    if name == "slice":
-        dims, make = ConeDims(l=M), large_problem
-    else:
-        dims, make = ConeDims(l=L_EQ, q=Q_EQ), lqeq_problem
+    dims, make = {
+        "slice": (ConeDims(l=M), large_problem),
+        "slice l+q+eq": (ConeDims(l=L_EQ, q=Q_EQ), lqeq_problem),
+        "slice l+q+s": (ConeDims(l=L_S, q=Q_S, s=S_S), lqs_problem)}[name]
     return dims, tuple(np.stack(a) for a in zip(*(make(s) for s in SEEDS)))
+
+
+def chol_check(dev, x_mixed):
+    """Phase 8: batched_qp_solver with no strategy named (chol, as with q
+    or s cones in the JAX package; f64 Cholesky through cuSOLVER) on
+    phase 7's problems: every lane optimal, x within 1e-6 (1 + |x|) of
+    the mixed driver's."""
+    from kvxopt_tpu_torch.convert import problem_to_torch, state_to_numpy
+    from kvxopt_tpu_torch.parallel import batched_qp_solver
+    dims, data = slice_data("slice l+q+s")
+    args = problem_to_torch(*data, device=dev)
+    solve = batched_qp_solver(dims)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = state_to_numpy(solve(*args))
+    secs = time.perf_counter() - t0
+    x, it, status = out[0], out[4], out[5]
+    dx = np.linalg.norm(x - x_mixed, axis=1) / (
+        1 + np.linalg.norm(x_mixed, axis=1))
+    print(f"slice l+q+s default chol: {secs:.4f} s (first call), status "
+          f"{status.tolist()}, iterations {it.tolist()}, max "
+          f"|x_chol-x_mixed|/(1+|x_mixed|) {dx.max():.3e} (tol 1e-6)")
+    check((status == 1).all(), "default chol: not every lane optimal")
+    check(dx.max() <= 1e-6, "default chol: x differs from the mixed driver")
+
+
+def nan_check(dev):
+    """Phase 7's trap: one lane with NaN in an s block.  max_step,
+    max_step_eig and compute_scaling ('eigh' and 'svd') on the card give
+    NaN on that lane, as jnp.linalg does, and the CPU's values (1e-10)
+    on the others; no cuSOLVER call raises."""
+    from kvxopt_tpu_torch import ConeDims, cones
+    dims = ConeDims(l=2, q=(3,), s=(3, 2, 3))
+    rng = np.random.default_rng(5)
+    s, z = (np.tile(cones.cone_e(dims, torch.float64).numpy(), (3, 1)) +
+            0.1 * rng.standard_normal((3, dims.size)) for _ in range(2))
+    s, z = (cones.symm(dims, torch.from_numpy(a)).numpy() for a in (s, z))
+    s[1, dims.sofs[-1] + 1] = np.nan
+
+    def run(device):
+        S, Z = (torch.tensor(a, device=device) for a in (s, z))
+        out = [cones.max_step(dims, S), cones.max_step_eig(dims, S)[0]]
+        for method in ("eigh", "svd"):
+            out.append(cones.compute_scaling(dims, S, Z, method)[1])
+        return [t.cpu().numpy() for t in out]
+    for g, c in zip(run(dev), run("cpu")):
+        g, c = g.reshape(3, -1), c.reshape(3, -1)
+        check(np.isnan(g[1]).any() and np.isfinite(g[[0, 2]]).all(),
+              "NaN in an s block: not NaN on that lane alone on the card")
+        check(np.abs(g[[0, 2]] - c[[0, 2]]).max() <=
+              1e-10 * (1 + np.abs(c[[0, 2]]).max()),
+              "NaN in an s block: other lanes differ from the CPU")
+    print("slice l+q+s NaN in one lane's s block: max_step, max_step_eig, "
+          "compute_scaling (eigh, svd) NaN on that lane only, as on the CPU")
+
+
+def ldl_check(dev):
+    """Phase 9: the ldl and ldl2 strategies through make_qp_solver at
+    B=4 n=64 l=64 q=(16,16) s=(8,8) on the card and on CPU tensors: every
+    lane optimal, the same status, iterations within 1, x within 1e-6.
+    Not at full width: ldl_nopiv steps column by column."""
+    from kvxopt_tpu_torch import ConeDims
+    from kvxopt_tpu_torch.convert import problem_to_torch, state_to_numpy
+    from kvxopt_tpu_torch.parallel import make_qp_solver
+    shape = (64, 64, (16, 16), (8, 8))
+    data = tuple(np.stack(a) for a in zip(*(lqs_problem(s, *shape)
+                                            for s in range(4))))
+    dims = ConeDims(l=shape[1], q=shape[2], s=shape[3])
+    for name in ("ldl", "ldl2"):
+        solve = make_qp_solver(dims, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = state_to_numpy(solve(*problem_to_torch(*data, device=dev)))
+        secs = time.perf_counter() - t0
+        c = state_to_numpy(solve(*problem_to_torch(*data, device="cpu")))
+        dx = np.linalg.norm(g[0] - c[0], axis=1) / (
+            1 + np.linalg.norm(c[0], axis=1))
+        print(f"{name} B=4 n=64 l+q+s: card {secs:.4f} s, status "
+              f"{g[5].tolist()}, iterations {g[4].tolist()}; cpu status "
+              f"{c[5].tolist()}, iterations {c[4].tolist()}; max "
+              f"|x_gpu-x_cpu|/(1+|x_cpu|) {dx.max():.3e} (tol 1e-6)")
+        check((g[5] == 1).all() and (g[5] == c[5]).all(),
+              f"{name}: not optimal, or status differs from the CPU")
+        check((np.abs(g[4] - c[4]) <= 1).all() and dx.max() <= 1e-6,
+              f"{name}: iterations or x differ from the CPU")
 
 
 def cpu_solve(name, threads):
@@ -757,7 +914,7 @@ def cpu_solve(name, threads):
 
 
 def start_cpu_solves(names):
-    """Phases 4 and 6 in spawned worker processes (no CUDA state is
+    """Phases 4, 6 and 10 in spawned worker processes (no CUDA state is
     forked), sharing the cores the card's phases leave."""
     global POOL
     threads = max(1, ((os.cpu_count() or 4) - 2) // len(names))
@@ -789,7 +946,7 @@ def main():
     dev = torch.device("cuda:0")
     phase0()
     stamp("phase 0")
-    names = ("slice", "slice l+q+eq")
+    names = ("slice", "slice l+q+eq", "slice l+q+s")
     pending = start_cpu_solves(names)
     rows = phase1(dev)
     k1_times(dev)
@@ -800,18 +957,26 @@ def main():
 
     gpu, _, _ = solve_phase("slice", dev, *slice_data("slice"))
     stamp("phase 3")
-    gpu_eq, launches, shapes = solve_phase("slice l+q+eq", dev,
-                                           *slice_data("slice l+q+eq"))
+    gpu_eq, _, shapes = solve_phase("slice l+q+eq", dev,
+                                    *slice_data("slice l+q+eq"))
     check(shapes.get(("K1", P_EQ, 0), 0) > 0,
           "K1 never factored the Schur complement (n=p)")
     check(shapes.get(("K2", N, P_EQ), 0) > 0,
           "K2 never ran with k=p right-hand sides")
     stamp("phase 5")
-    for name, g in zip(names, (gpu, gpu_eq)):
+    gpu_s, launches, _ = solve_phase("slice l+q+s", dev,
+                                     *slice_data("slice l+q+s"))
+    nan_check(dev)
+    stamp("phase 7")
+    chol_check(dev, gpu_s[0])
+    stamp("phase 8")
+    ldl_check(dev)
+    stamp("phase 9")
+    for name, g in zip(names, (gpu, gpu_eq, gpu_s)):
         cpu_phase(name, pending[name], g)
     POOL.close()
     POOL.join()
-    stamp("phases 4 and 6")
+    stamp("phases 4, 6 and 10")
 
     launches["K4"] = k4_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",

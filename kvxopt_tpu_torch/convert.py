@@ -42,35 +42,45 @@ def problem_to_torch(*arrays, device="cuda", dtype=torch.float64):
                  for a in arrays)
 
 
-def scaling_from_jax(dims, d, beta, v, device="cuda", dtype=torch.float64):
+def scaling_from_jax(dims, d, beta, v, r=(), rti=(), device="cuda",
+                     dtype=torch.float64):
     """The port's NTScaling from the JAX package's fields, each with a
     leading batch axis (as jax.vmap returns them): d (B, l), beta a tuple
-    of (B,) per q block, v a tuple of (B, m) per q block.  The port keeps
-    beta and v per group of equal-size blocks.  The tensors go to the card
-    unless the caller names another device."""
+    of (B,) per q block, v a tuple of (B, m) per q block, r and rti
+    tuples of (B, m, m) per s block.  The port keeps beta and v per group
+    of equal-size q blocks and r and rti per group of equal-order s
+    blocks.  The tensors go to the card unless the caller names another
+    device."""
     dims = dims_from(dims)
+    qgroups, sgroups = block_groups(dims)
 
-    def t(a):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
-    groups = block_groups(dims)[0]
+    def per_group(groups, fields):
+        return tuple(torch.tensor(
+            np.stack([np.asarray(fields[k]) for k in g.idxs], 1),
+            dtype=dtype, device=device) for g in groups)
     return NTScaling(
-        d=t(d),
-        beta=tuple(t(np.stack([np.asarray(beta[k]) for k in g.idxs], 1))
-                   for g in groups),
-        v=tuple(t(np.stack([np.asarray(v[k]) for k in g.idxs], 1))
-                for g in groups))
+        d=torch.tensor(np.asarray(d), dtype=dtype, device=device),
+        beta=per_group(qgroups, beta), v=per_group(qgroups, v),
+        r=per_group(sgroups, r), rti=per_group(sgroups, rti))
 
 
 def scaling_to_jax(dims, W):
-    """(d, beta, v) of the port's NTScaling in the JAX package's layout,
-    numpy with a leading batch axis: beta and v one entry per q block."""
+    """(d, beta, v, r, rti) of the port's NTScaling in the JAX package's
+    layout, numpy with a leading batch axis: beta and v one entry per q
+    block, r and rti one per s block."""
     dims = dims_from(dims)
-    beta, v = [None] * len(dims.q), [None] * len(dims.q)
-    for gi, g in enumerate(block_groups(dims)[0]):
-        for j, k in enumerate(g.idxs):
-            beta[k] = W.beta[gi][:, j].cpu().numpy()
-            v[k] = W.v[gi][:, j].cpu().numpy()
-    return W.d.cpu().numpy(), tuple(beta), tuple(v)
+    qgroups, sgroups = block_groups(dims)
+
+    def per_block(groups, fields, nblocks):
+        out = [None] * nblocks
+        for gi, g in enumerate(groups):
+            for j, k in enumerate(g.idxs):
+                out[k] = fields[gi][:, j].cpu().numpy()
+        return tuple(out)
+    return (W.d.cpu().numpy(), per_block(qgroups, W.beta, len(dims.q)),
+            per_block(qgroups, W.v, len(dims.q)),
+            per_block(sgroups, W.r, len(dims.s)),
+            per_block(sgroups, W.rti, len(dims.s)))
 
 
 def state_to_numpy(out):

@@ -10,11 +10,13 @@ solving the scaled Newton system of the JAX package for every lane of a
 batch at once: G is (B, m, n), A (B, p, n), P (B, n, n), the right-hand
 sides (B, .).
 
-Ported: the condensed normal-equations strategy `chol2` and its
-mixed-precision forms `chol2_mixed` / `chol2_mixed_nofb` (f32 factor on
-kernel K1, f64 refinement), each with a Schur complement over A when
-p > 0, and the null-space strategies `chol` and `qr`.  `ldl` and `ldl2`
-raise NotImplementedError (ROADMAP.md, Queue 1).
+Every strategy of the JAX package is here: the condensed
+normal-equations strategy `chol2` and its mixed-precision forms
+`chol2_mixed` / `chol2_mixed_nofb` (f32 factor on kernel K1, f64
+refinement), each with a Schur complement over A when p > 0, the
+null-space strategies `chol` and `qr`, and the regularized
+quasidefinite LDL' strategies `ldl` (the full 3x3 system) and `ldl2`
+(uz eliminated), on any l + q + s cone.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from .ops.ozaki import OzakiOperator, ata
 
 STRATEGIES = ("ldl", "ldl2", "chol", "chol2", "qr", "chol2_mixed",
               "chol2_mixed_nofb")
-PORTED = ("chol", "chol2", "qr", "chol2_mixed", "chol2_mixed_nofb")
+PORTED = STRATEGIES
 
 
 def _mv(M, x):
@@ -63,15 +65,11 @@ def make_kkt_solver(name, dims: ConeDims, G, A=None, P=None, mnl: int = 0,
     if name not in STRATEGIES:
         raise ValueError(f"unknown kktsolver {name!r}; expected one of "
                          f"{STRATEGIES}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"kktsolver {name!r} is not ported yet; kvxopt_tpu_torch has "
-            f"{PORTED} (ROADMAP.md, Queue 1)")
-    cones.require_no_s(dims)
     if A is None:
         A = G.new_zeros((G.shape[0], 0, G.shape[-1]))
     edims = dims.with_extra_l(mnl) if mnl else dims
     fn = {"chol2": _kkt_chol2, "chol": _kkt_chol, "qr": _kkt_qr,
+          "ldl": _kkt_ldl, "ldl2": _kkt_ldl2,
           "chol2_mixed": partial(_kkt_chol2_mixed, ozaki=ozaki,
                                  facref=facref),
           # without the per-lane f64-factor fallback; batch drivers pair
@@ -477,3 +475,130 @@ def _kkt_chol(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
 
 def _kkt_qr(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
     return _kkt_nullspace(dims, edims, G, A, P, mnl, reg, W, H, Df, _spd_qr)
+
+
+# ---------------------------------------------------------------------------
+# ldl / ldl2 — regularized quasidefinite factorizations
+# (reference misc.py:1055 kkt_ldl, :1128 kkt_ldl2)
+# ---------------------------------------------------------------------------
+
+DEFAULT_KKTREG = 1e-9
+
+
+def _set_diag(M, lo, hi, val):
+    """M[:, i, i] = val for lo <= i < hi."""
+    i = torch.arange(lo, hi, device=M.device)
+    M[:, i, i] = val
+
+
+def ldl_nopiv(M, block: int = 64):
+    """Unpivoted blocked LDL' factorization of a batch of quasidefinite
+    matrices M (B, n, n): (L (B, n, n) unit lower triangular, d (B, n))
+    with M = L diag(d) L'.  As kvxopt_tpu.kkt.ldl_nopiv: M padded with
+    the identity to a multiple of `block`, each diagonal block factored
+    column by column with rank-one updates, the panel below it by a
+    triangular solve and the trailing matrix by one product."""
+    Bn, n, _ = M.shape
+    nb = -(-n // block) * block
+    Mp = M.new_zeros((Bn, nb, nb))
+    Mp[:, :n, :n] = M
+    _set_diag(Mp, n, nb, 1.0)
+    L = torch.zeros_like(Mp)
+    d = M.new_zeros((Bn, nb))
+    for k0 in range(0, nb, block):
+        k1 = k0 + block
+        Akk = Mp[:, k0:k1, k0:k1].clone()
+        Lkk = L[:, k0:k1, k0:k1]
+        for j in range(block):
+            pivot = Akk[:, j, j]
+            col = Akk[:, j + 1:, j] / pivot[:, None]
+            Lkk[:, j, j] = 1.0
+            Lkk[:, j + 1:, j] = col
+            d[:, k0 + j] = pivot
+            Akk[:, j + 1:, j + 1:] -= (col[:, :, None] * col[:, None, :] *
+                                       pivot[:, None, None])
+        if k1 < nb:
+            dk = d[:, k0:k1]
+            Lsk = torch.linalg.solve_triangular(
+                Lkk, Mp[:, k1:, k0:k1].mT, upper=False).mT / dk[:, None, :]
+            Mp[:, k1:, k1:] -= (Lsk * dk[:, None, :]) @ Lsk.mT
+            L[:, k1:, k0:k1] = Lsk
+    return L[:, :n, :n], d[:, :n]
+
+
+def ldl_solve(L, d, b):
+    """x with L diag(d) L' x = b for b (B, n)."""
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False,
+                                      unitriangular=True)
+    return torch.linalg.solve_triangular(L.mT, y / d[..., None], upper=True,
+                                         unitriangular=True)[..., 0]
+
+
+def _ldl_refined(L, d, rhs, mul):
+    """One LDL' solve and one step of iterative refinement against the
+    unregularized system, whose product is mul(u)."""
+    u = ldl_solve(L, d, rhs)
+    return u + ldl_solve(L, d, rhs - mul(u))
+
+
+def _kkt_ldl(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
+    """Full 3x3 LDL' with QDLDL-style +/- regularization (reference
+    kkt_ldl with the kktreg option, misc.py:1055-1125)."""
+    n, p = G.shape[-1], A.shape[-2]
+    eps = reg or DEFAULT_KKTREG
+    Geff = _geff(G, Df, mnl)
+    Gs = cones.wtw_scale_cols(edims, W, Geff)
+    N = Gs.shape[-2]
+    Kxx = _keff(P, H, G)
+    M = G.new_zeros((G.shape[0], n + p + N, n + p + N))
+    M[:, :n, :n] = Kxx + eps * _eye_like(Kxx)
+    M[:, n:n + p, :n] = A
+    M[:, :n, n:n + p] = A.mT
+    M[:, n + p:, :n] = Gs
+    M[:, :n, n + p:] = Gs.mT
+    _set_diag(M, n, n + p, -eps)
+    _set_diag(M, n + p, n + p + N, -(1.0 + eps))
+    L, dvec = ldl_nopiv(M)
+
+    def mul(u):
+        ux, uy, uz = u[:, :n], u[:, n:n + p], u[:, n + p:]
+        return torch.cat([_mv(Kxx, ux) + _tmv(A, uy) + _tmv(Gs, uz),
+                          _mv(A, ux), _mv(Gs, ux) - uz], dim=-1)
+
+    def solve(bx, by, bz):
+        bzs = cones.scale(edims, W, bz, trans=True, inverse=True)
+        u = _ldl_refined(L, dvec, torch.cat([bx, by, bzs], dim=-1), mul)
+        uz = cones.scale(edims, W, u[:, n + p:], inverse=True)
+        return u[:, :n], u[:, n:n + p], uz
+
+    return solve
+
+
+def _kkt_ldl2(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
+    """2x2 condensed LDL': eliminate uz first (reference kkt_ldl2,
+    misc.py:1128)."""
+    n, p = G.shape[-1], A.shape[-2]
+    eps = reg or DEFAULT_KKTREG
+    Geff = _geff(G, Df, mnl)
+    Gs = cones.wtw_scale_cols(edims, W, Geff)
+    K = _keff(P, H, G) + Gs.mT @ Gs
+    M = G.new_zeros((G.shape[0], n + p, n + p))
+    M[:, :n, :n] = K + eps * _eye_like(K)
+    M[:, n:, :n] = A
+    M[:, :n, n:] = A.mT
+    _set_diag(M, n, n + p, -eps)
+    L, dvec = ldl_nopiv(M)
+
+    def mul(u):
+        ux, uy = u[:, :n], u[:, n:]
+        return torch.cat([_mv(K, ux) + _tmv(A, uy), _mv(A, ux)], dim=-1)
+
+    def solve(bx, by, bz):
+        bzs = cones.scale(edims, W, bz, trans=True, inverse=True)
+        u = _ldl_refined(L, dvec, torch.cat([bx + _tmv(Gs, bzs), by],
+                                            dim=-1), mul)
+        ux = u[:, :n]
+        uz = cones.scale(edims, W, _mv(Gs, ux) - bzs, inverse=True)
+        return ux, u[:, n:], uz
+
+    return solve

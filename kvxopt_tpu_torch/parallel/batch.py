@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from .. import kkt
-from ..cones import ConeDims, require_no_s
+from ..cones import ConeDims
 from ..kkt import _mv, _tmv
 from ..solvers.coneprog import OPTIMAL, Options, _coneqp_core
 
@@ -38,13 +38,12 @@ def make_qp_solver(dims, kktsolver=None, options=None, with_eq=False):
     batch of one and returned without the batch dimension, as the JAX
     function returns it.  A and b are optional at every call, as in the
     JAX function, which takes with_eq only for its signature.  The KKT
-    strategy defaults to 'chol' with q cones and 'chol2' otherwise (the
-    reference coneqp default)."""
+    strategy defaults to 'chol' with q or s cones and 'chol2' otherwise
+    (the reference coneqp default)."""
     dims = ConeDims.from_dict(dims)
-    require_no_s(dims)
     o = _options(options)
     if kktsolver is None:
-        kktsolver = "chol" if dims.q else "chol2"
+        kktsolver = "chol" if (dims.q or dims.s) else "chol2"
     o = o.resolve_refinement(dims, kktsolver)
 
     def solve(P, q, G, h, A=None, b=None):

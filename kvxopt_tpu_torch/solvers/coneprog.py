@@ -45,7 +45,9 @@ class Options(NamedTuple):
     refinement: int = -1   # -1 = auto: 1 with q/s cones else 0
     show_progress: bool = False
     kktreg: float = 0.0
-    sscaling: str = "eigh"  # s-block NT construction (s cones: not ported)
+    sscaling: str = "eigh"  # s-block NT construction, 'eigh' or 'svd';
+                            # the coneqp core uses the default, as the
+                            # JAX package's does
     facref: object = None   # factor refinement of the mixed strategies:
                             # None = config.factor_refine, True/False force
     ozaki: object = None    # exact-split refinement matvecs of the mixed
@@ -101,7 +103,6 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
     KKT strategy over the batch, gmv/amv/pmv batched operator products
     (gmv and amv take trans=True for G' and A').  Returns the final
     state (x, y, s, z, iterations, status, metrics)."""
-    cones.require_no_s(dims)
     B, dtype, dev = q.shape[0], q.dtype, q.device
     p = b.shape[-1]
     deg = dims.degree

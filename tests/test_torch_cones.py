@@ -132,11 +132,11 @@ def test_conedims_mirrors_jax():
 
 
 def test_q_and_s_cones_not_ported():
-    """q cones are ported (tests/test_torch_cones_q.py); s cones still
-    raise with a pointer to the roadmap."""
+    """q cones (tests/test_torch_cones_q.py) and s cones
+    (tests/test_torch_cones_s.py) are ported: nothing here raises."""
     close(tc.cone_e(tc.ConeDims(l=2, q=(3,)), torch.float64),
           [1.0, 1.0, 1.0, 0.0, 0.0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.cone_e(tc.ConeDims(l=2, s=(3,)), torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.sprod(tc.ConeDims(s=(2,)), torch.ones(1, 4), torch.ones(1, 4))
+    close(tc.cone_e(tc.ConeDims(l=2, s=(3,)), torch.float64),
+          [1.0, 1.0] + np.eye(3).ravel().tolist())
+    close(tc.sprod(tc.ConeDims(s=(2,)), torch.ones(1, 4), torch.ones(1, 4)),
+          [[2.0, 2.0, 2.0, 2.0]])

@@ -131,7 +131,7 @@ def test_compute_scaling_matches_jax(d):
     W, lam = tc.compute_scaling(TD, T(s), T(z))
     Wj, lamj = jax_scaling(JD, s, z)
     close(lam, lamj)
-    dd, beta, v = scaling_to_jax(TD, W)
+    dd, beta, v = scaling_to_jax(TD, W)[:3]
     close(dd, Wj.d)
     for k in range(len(d["q"])):
         close(beta[k], Wj.beta[k])
@@ -147,7 +147,7 @@ def test_identity_scaling_matches_jax(d):
     JD, TD = jc.ConeDims(**d), tc.ConeDims(**d)
     W = tc.identity_scaling(TD, B, torch.float64)
     Wj = jc.identity_scaling(JD, jnp.float64)
-    dd, beta, v = scaling_to_jax(TD, W)
+    dd, beta, v = scaling_to_jax(TD, W)[:3]
     close(dd, np.broadcast_to(np.asarray(Wj.d), (B, d["l"])))
     for k in range(len(d["q"])):
         close(beta[k], np.full(B, float(Wj.beta[k])))

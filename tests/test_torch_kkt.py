@@ -130,24 +130,21 @@ def test_cond_any_skips_true_branch_when_no_lane_needs_it():
 
 @pytest.mark.parametrize("name", ["ldl", "ldl2", "chol", "qr"])
 def test_other_strategies_not_ported(name):
-    """ldl and ldl2 still raise with a pointer to the roadmap; chol and qr
-    are ported (tests/test_torch_kkt_eq.py) and build."""
+    """Every strategy is ported (ldl and ldl2: tests/test_torch_kkt_ldl.py,
+    chol and qr: tests/test_torch_kkt_eq.py) and builds; an unknown name
+    still raises."""
     G = torch.zeros((1, 4, 2))
-    if name in ("chol", "qr"):
-        assert name in tk.PORTED
-        assert callable(tk.make_kkt_solver(name, tc.ConeDims(l=4), G))
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tk.make_kkt_solver(name, tc.ConeDims(l=4), G)
+    assert name in tk.PORTED
+    assert callable(tk.make_kkt_solver(name, tc.ConeDims(l=4), G))
     with pytest.raises(ValueError):
         tk.make_kkt_solver("nope", tc.ConeDims(l=4), G)
 
 
 def test_equality_constraints_not_ported():
     """Equality constraints are ported (tests/test_torch_kkt_eq.py): a
-    strategy takes A with p > 0.  What still raises with them is a
-    semidefinite cone."""
+    strategy takes A with p > 0, with a semidefinite cone too."""
     G, A = torch.zeros((1, 4, 2)), torch.ones((1, 1, 2))
     assert callable(tk.make_kkt_solver("chol2", tc.ConeDims(l=4), G, A))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.make_kkt_solver("chol2", tc.ConeDims(l=0, s=(2,)), G, A)
+    for name in tk.STRATEGIES:
+        assert callable(tk.make_kkt_solver(name, tc.ConeDims(l=0, s=(2,)),
+                                           G, A))

@@ -72,7 +72,7 @@ def test_chol2_driver_matches_jax(B, n, m):
     compare(port, ref)
 
 
-@pytest.mark.parametrize("B,n,m", SHAPES)
+@pytest.mark.parametrize("B,n,m", SHAPES + [(2, 256, 512)])
 def test_pass1_with_factor_refinement_matches_jax(B, n, m):
     """Pass 1 alone as the card runs it, factor refinement on (on the CPU
     the drivers' "vmap" default turns it off on both sides), including
@@ -116,18 +116,23 @@ def test_conversions_from_jax_objects():
 
 
 def test_unported_inputs_raise():
-    """q cones and equality constraints are ported
-    (tests/test_torch_slice_eq.py); s cones, mesh sharding and the ldl
-    strategies still raise with a pointer to the roadmap."""
+    """q cones and equality constraints (tests/test_torch_slice_eq.py), s
+    cones and the ldl strategies (tests/test_torch_slice_s.py) are ported;
+    mesh sharding still raises with a pointer to the roadmap."""
     tb.make_qp_solver(ConeDims(l=3, q=(3,)), with_eq=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.make_qp_solver(ConeDims(l=3, s=(2,)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tb.batched_qp_solver(ConeDims(l=3), mesh=object())
-    solve = tb.make_qp_solver(ConeDims(l=3), "ldl")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve(*(torch.zeros(s) for s in ((2, 2), (2,), (3, 2), (3,))),
-              torch.ones((1, 2)), torch.ones(1))
+    # min |x|^2 / 2 + x0 + x1 with diag(x0, x1) in S^2_+ and x0 + x1 = 1
+    P, q = torch.eye(2, dtype=torch.float64), torch.ones(2, dtype=torch.float64)
+    G = torch.zeros((4, 2), dtype=torch.float64)
+    G[0, 0] = G[3, 1] = -1.0
+    h = torch.zeros(4, dtype=torch.float64)
+    A, b = torch.ones((1, 2), dtype=torch.float64), torch.ones(
+        1, dtype=torch.float64)
+    for name in (None, "ldl", "ldl2"):
+        out = tb.make_qp_solver(ConeDims(s=(2,)), name)(P, q, G, h, A, b)
+        assert int(out[5]) == 1, name
+        np.testing.assert_allclose(out[0].numpy(), [0.5, 0.5], atol=1e-6)
 
 
 def test_problem_to_torch_defaults_to_the_card():
