@@ -1,9 +1,11 @@
 """On-card gate for kvxopt_tpu_torch: builds the CUDA kernels, checks them
 against their plain PyTorch versions, and drives the port's main paths
 on one GPU: the kernel entry point kvxopt_tpu_torch.ops.batched_cholesky
-(K4) and the two-pass batched mixed-precision cone-QP solve, on the
+(K4); the two-pass batched mixed-precision cone-QP solve, on the
 orthant, on orthant + second-order cones + equality constraints, and on
-orthant + second-order + semidefinite cones.
+orthant + second-order + semidefinite cones; the batched cone-LP solve;
+and the cone-program front ends (solvers.coneqp/qp/conelp/lp/socp/sdp)
+with numpy data and no device named.
 
     python3 chip_smoke.py
 
@@ -52,11 +54,33 @@ Phases (any failure exits non-zero and prints no result):
   9. the ldl and ldl2 strategies at B=4 n=64 l=64 q=(16,16) s=(8,8) on
      the card against the same solves on CPU tensors;
  10. phase 7's problems on CPU tensors: same status, iterations within
-     1, x within 1e-6.
-Phases 4, 6 and 10 run in three worker processes (spawned after the
-build, at lower priority, a few CPU threads each) beside phases 1-9, and
-are compared with the card's solves at the end; each phase prints the
-seconds since the start.
+     1, x within 1e-6;
+ 11. "lp batch": batched_lp_solver(ConeDims(l=768)) on 16 LPs with
+     n=384, m=768 (grid_scenarios: the shape of bench_configs'
+     ACTIVSg2000 scenario batch, a seeded random stand-in for its
+     submatrix), numpy data, f64, abstol and feastol 1e-7: every lane
+     optimal, G'z + c and Gx + s - h below 1e-6 relative with x, s, z
+     over tau, s and z in the cone, the result tensors on the card; 3
+     warm wall times and the device's busy share over one solve; the
+     same 16 LPs on CPU tensors: same status, iterations within 1, x/tau
+     within 1e-6;
+ 12. "front ends": coneqp and qp on phase 3's lane 0 (x within 1e-6 of
+     the batched chol2 solve), conelp on an l+q+s cone LP with n=512,
+     l=256, q=[64]*4, s=[16]*2 (lqs_lp; optimal, residuals below 1e-6,
+     s and z in the cone, and the same call on CPU tensors: same status,
+     iterations within 1, x within 1e-6), the userguide LP, SOCP and
+     SDP and the primal- and dual-infeasible LPs (their certificates'
+     identities), all with numpy data: each result has the JAX
+     function's key set and its tensors on the card; each call's warm
+     median of 3 is printed.
+The CPU solves of phases 4, 6, 10, 11 and 12 run in three worker
+processes (spawned after the build, at lower priority, a few CPU threads
+each; phase 10's first, then the two short ones of 11 and 12, then
+phases 4 and 6) beside the card's phases, and are compared with the
+card's solves at the end; each phase prints the seconds since the
+start.  Phases 11 and 12 run the f64 chol2 and qr strategies
+(cuSOLVER), which launch none of K1-K4; they print the counts, set to 0
+before each solve.
 Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
 and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
 synchronizing calls per IPM iteration.  The line before the card's line
@@ -83,6 +107,8 @@ B, N, M = 16, 512, 1024
 SEEDS = range(16)
 L_EQ, Q_EQ, P_EQ = 512, (64,) * 8, 32   # phase 5: m = 512 + 8 * 64 = M
 L_S, Q_S, S_S = 256, (64,) * 4, (16,) * 2  # phase 7: m = 256+256+512 = M
+K_GRID = 384    # phase 11: n = k, m = 2k, as bench_configs.cfg_activsg
+SUB_SEED = 2000  # the stand-in for the ACTIVSg2000 submatrix
 T0 = time.perf_counter()
 POOL = None     # the worker processes of phases 4, 6 and 10
 
@@ -196,6 +222,38 @@ def lqs_problem(seed, n=N, l=L_S, qs=Q_S, ss=S_S):
         s0[ofs:ofs + k * k] = (Ms @ Ms.T + np.eye(k)).ravel()
         ofs += k * k
     return P, q, G, G @ x0 + s0
+
+
+def grid_scenarios(k=K_GRID, seeds=SEEDS):
+    """(c, G, h), one LP per seed, as bench_configs._grid_scenarios builds
+    them, with a seeded standard-normal k x k `sub` standing in for the
+    ACTIVSg2000 submatrix (its file is not in the repo):
+    G0 = [sub + (1 + sum|sub|) I; -I] on every lane, and per lane
+    x0 = 0.1 randn, s0 uniform(0.5, 1.5), h = G0 x0 + s0, z0 uniform(0.1,
+    1), c = -G0' z0."""
+    sub = np.random.default_rng(SUB_SEED).standard_normal((k, k))
+    G0 = np.vstack([sub + np.eye(k) * (1.0 + np.abs(sub).sum()),
+                    -np.eye(k)])
+    m, n = G0.shape
+    out = []
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        x0 = rng.standard_normal(n) * 0.1
+        h = G0 @ x0 + rng.uniform(0.5, 1.5, m)
+        out.append((-G0.T @ rng.uniform(0.1, 1.0, m), G0, h))
+    return tuple(np.stack(a) for a in zip(*out))
+
+
+def lqs_lp(seed, n=N, l=L_S, qs=Q_S, ss=S_S):
+    """A bounded l + q + s cone LP: G and h as lqs_problem builds them,
+    c = -G' z0 with z0 inside the cone as tests/test_conelp.py's
+    mixed-cone problem makes it: uniform(0.5, 1.5) on the orthant,
+    (2, 0.1, ..., 0.1) on each SOC block, I + 0.1 ones on each s block."""
+    _, _, G, h = lqs_problem(seed, n, l, qs, ss)
+    z0 = [np.random.default_rng(seed).uniform(0.5, 1.5, l)]
+    z0 += [np.r_[2.0, np.full(k - 1, 0.1)] for k in qs]
+    z0 += [(np.eye(k) + 0.1 * np.ones((k, k))).ravel() for k in ss]
+    return -G.T @ np.concatenate(z0), G, h
 
 
 def phase0():
@@ -897,13 +955,259 @@ def ldl_check(dev):
               f"{name}: iterations or x differ from the CPU")
 
 
+def warm_times(fn, reps=3):
+    """Host wall seconds of `reps` warm calls, each ending in a sync."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return ts
+
+
+def device_busy(fn):
+    """(wall s, device busy s) of one call under torch.profiler; busy is
+    None where the profiler saw no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return wall, (busy or None)
+
+
+def on_card(name, *tensors):
+    check(all(t.device.type == "cuda" for t in tensors if t is not None),
+          f"{name}: a result tensor is not on the card")
+
+
+LP_OPTIONS = {"abstol": 1e-7, "feastol": 1e-7}
+LQS_DIMS = {"l": L_S, "q": list(Q_S), "s": list(S_S)}
+
+
+def lp_batch(dev):
+    """Phase 11, "lp batch": batched_lp_solver(ConeDims(l=2k)) on the 16
+    LPs of grid_scenarios (n=384, m=768, f64, abstol and feastol 1e-7),
+    numpy data and no device named, the kernel counts set to 0 just
+    before the solve and read just after: every lane optimal; with x, s,
+    y and z over tau, G'z + c and Gx + s - h below 1e-6 relative; s and z
+    in the cone; 3 warm wall times and the device's busy share over one
+    solve."""
+    from kvxopt_tpu_torch import ConeDims, cones
+    from kvxopt_tpu_torch.convert import lp_state_to_numpy
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch.parallel import batched_lp_solver
+    name = "lp batch"
+    dims = ConeDims(l=2 * K_GRID)
+    c, G, h = grid_scenarios()
+    solve = batched_lp_solver(dims, options=LP_OPTIONS)
+    torch.cuda.synchronize()
+    cl.reset_launches()
+    t0 = time.perf_counter()
+    out = solve(c, G, h)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches = dict(cl.LAUNCHES)
+    on_card(name, *out[:8], *out[8].values())
+    check(out[0].device.index == dev.index, f"{name}: not on {dev}")
+    x, y, s, z, tau, kappa, it, status, m = lp_state_to_numpy(out)
+    x, s, z = (a / tau[:, None] for a in (x, s, z))
+    print(f"{name} B={len(SEEDS)} n={K_GRID} m={2 * K_GRID}: status "
+          f"{status.tolist()}, iterations {it.tolist()}, first call "
+          f"{first:.4f} s, kernel launches during the solve {launches} "
+          "(the f64 chol2 path runs none)")
+    check((status == 1).all(), f"{name}: not every lane optimal")
+    rd = np.linalg.norm(np.einsum("bji,bj->bi", G, z) + c, axis=1) / (
+        1 + np.linalg.norm(c, axis=1))
+    rp = np.linalg.norm(np.einsum("bij,bj->bi", G, x) + s - h, axis=1) / (
+        1 + np.linalg.norm(h, axis=1))
+    print(f"{name} max residuals: G'z+c {rd.max():.3e}, Gx+s=h "
+          f"{rp.max():.3e} (tol 1e-6)")
+    check(rd.max() < 1e-6 and rp.max() < 1e-6, f"{name}: residuals too large")
+    ts_, tz_ = cones.max_step2(dims, out[2], out[3])
+    print(f"{name} max_step(s) {float(ts_.max()):.3e}, max_step(z) "
+          f"{float(tz_.max()):.3e} (<= 0: in the cone)")
+    check(bool((ts_ <= 0).all() and (tz_ <= 0).all()),
+          f"{name}: s or z outside the cone")
+    ts = warm_times(lambda: solve(c, G, h))
+    print(f"{name} wall time: median {np.median(ts):.4f} s, min "
+          f"{min(ts):.4f}, max {max(ts):.4f} over 3 warm batch solves "
+          f"(numpy data in, the host-to-card copy included)")
+    wall, busy = device_busy(lambda: solve(c, G, h))
+    print(f"{name} profile (profiler on): wall {wall:.4f} s, " + (
+        "device busy not measured (no device events)" if busy is None else
+        f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%)"))
+    return x, it, status
+
+
+QP_KEYS = frozenset((
+    "status", "x", "y", "s", "z", "iterations", "primal objective",
+    "dual objective", "gap", "relative gap", "primal infeasibility",
+    "dual infeasibility", "primal slack", "dual slack"))
+LP_KEYS = QP_KEYS | {"residual as primal infeasibility certificate",
+                     "residual as dual infeasibility certificate"}
+# the JAX package's socp/sdp add these beside s and z where those exist
+SOCP_KEYS = LP_KEYS | {"zl", "zq", "sl", "sq"}
+SDP_KEYS = LP_KEYS | {"zl", "zs", "sl", "ss"}
+
+
+def userguide_data():
+    """The userguide LP (tests/test_conelp.py), SOCP (the same file) and
+    SDP (bench_configs._userguide_sdp_data), and the primal- and
+    dual-infeasible LPs of tests/test_conelp.py."""
+    lp = (np.array([-4.0, -5.0]),
+          np.array([[2.0, 1.0], [1.0, 2.0], [-1.0, 0.0], [0.0, -1.0]]),
+          np.array([3.0, 3.0, 0.0, 0.0]))
+    G1 = -np.array([[-12.0, -6.0, 5.0], [-13.0, 3.0, 5.0],
+                    [-12.0, 12.0, -6.0]])
+    G2 = -np.array([[-3.0, 6.0, -10.0], [-3.0, 6.0, 2.0], [1.0, 9.0, 2.0],
+                    [-1.0, -19.0, 3.0]])
+    socp = (np.array([-2.0, 1.0, 5.0]), [G1, G2],
+            [np.array([-12.0, -3.0, -2.0]), np.array([27.0, 0.0, 3.0, -42.0])])
+    sdp = (np.array([1.0, -1.0, 1.0]),
+           [np.array([[-7.0, -11.0, -11.0, 3.0], [7.0, -18.0, -18.0, 8.0],
+                      [-2.0, -8.0, -8.0, 1.0]]).T,
+            np.array([[-21.0, -11.0, 0.0, -11.0, 10.0, 8.0, 0.0, 8.0, 5.0],
+                      [0.0, 10.0, 16.0, 10.0, -10.0, -10.0, 16.0, -10.0, 3.0],
+                      [-5.0, 2.0, -17.0, 2.0, -6.0, 8.0, -17.0, 8.0, 6.0]]).T],
+           [np.array([[33.0, -9.0], [-9.0, 26.0]]),
+            np.array([[14.0, 9.0, 40.0], [9.0, 91.0, 10.0],
+                      [40.0, 10.0, 15.0]])])
+    pinf = (np.array([1.0]), np.array([[1.0], [-1.0]]), np.array([-1.0, -1.0]))
+    dinf = (np.array([-1.0]), np.array([[-1.0]]), np.array([0.0]))
+    return lp, socp, sdp, pinf, dinf
+
+
+def front_ends(dev):
+    """Phase 12, "front ends": single-instance solves through
+    kvxopt_tpu_torch.solvers with numpy data and no device named, the
+    kernel counts set to 0 before each call and read after; every result
+    has the JAX function's key set and its tensors on the card, and each
+    call's warm median of 3 is printed."""
+    from kvxopt_tpu_torch import ConeDims, cones, solvers
+    from kvxopt_tpu_torch.convert import problem_to_torch
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch.parallel import batched_qp_solver
+
+    def run(name, fn, keys, status="optimal"):
+        torch.cuda.synchronize()
+        cl.reset_launches()
+        sol = fn()
+        torch.cuda.synchronize()
+        launches = dict(cl.LAUNCHES)
+        check(set(sol) == keys, f"front ends {name}: keys {sorted(sol)}")
+        on_card(f"front ends {name}", *(sol[k] for k in "xysz"))
+        ts = warm_times(fn)
+        print(f"front ends {name}: status {sol['status']}, iterations "
+              f"{sol['iterations']}, warm median {1e3 * np.median(ts):.2f} "
+              f"ms (min {1e3 * min(ts):.2f}, max {1e3 * max(ts):.2f}, 3 "
+              f"calls), kernel launches {launches}", flush=True)
+        check(sol["status"] == status, f"front ends {name}: status "
+              f"{sol['status']}, expected {status}")
+        return sol
+
+    def host(t):
+        return t.cpu().numpy()
+
+    # coneqp and qp on lane 0 of phase 3's orthant problems, against the
+    # batched chol2 solve of that lane
+    _, data = slice_data("slice")
+    xref = batched_qp_solver(ConeDims(l=M), "chol2")(
+        *problem_to_torch(*data, device=dev))[0][0].cpu().numpy()
+    P, q, G, h = (a[0] for a in data)
+    for name, fn in (
+            ("coneqp orthant n=512", lambda: solvers.coneqp(P, q, G, h,
+                                                            {"l": M})),
+            ("qp orthant n=512", lambda: solvers.qp(P, q, G, h))):
+        x = host(run(name, fn, QP_KEYS)["x"])
+        dx = np.linalg.norm(x - xref) / (1 + np.linalg.norm(xref))
+        print(f"front ends {name}: |x-x_chol2|/(1+|x_chol2|) {dx:.3e} "
+              "(tol 1e-6)")
+        check(dx <= 1e-6, f"front ends {name}: x differs from chol2")
+
+    # conelp on an l+q+s cone LP, default strategy qr
+    c, G, h = lqs_lp(0)
+    dims = ConeDims.from_dict(LQS_DIMS)
+    sol = run("conelp l+q+s n=512", lambda: solvers.conelp(c, G, h, LQS_DIMS),
+              LP_KEYS)
+    x, s, z = (host(sol[k]) for k in "xsz")
+    rd = np.linalg.norm(G.T @ z + c) / (1 + np.linalg.norm(c))
+    rp = np.linalg.norm(G @ x + s - h) / (1 + np.linalg.norm(h))
+    ts_, tz_ = cones.max_step2(dims, sol["s"][None], sol["z"][None])
+    print(f"front ends conelp l+q+s: G'z+c {rd:.3e}, Gx+s=h {rp:.3e} (tol "
+          f"1e-6), max_step(s) {float(ts_):.3e}, max_step(z) "
+          f"{float(tz_):.3e} (<= 0: in the cone, s eigenvalues included)")
+    check(rd < 1e-6 and rp < 1e-6, "front ends conelp: residuals too large")
+    check(float(ts_) <= 0 and float(tz_) <= 0,
+          "front ends conelp: s or z outside the cone")
+    lqs = (x[None], np.array([sol["iterations"]]), np.array([sol["status"]]))
+
+    # the userguide problems and the infeasible LPs, at their tests'
+    # tolerances
+    lp, socp, sdp, pinf, dinf = userguide_data()
+    sol = run("lp userguide", lambda: solvers.lp(*lp), LP_KEYS)
+    check(np.abs(host(sol["x"]) - [1.0, 1.0]).max() <= 1e-6 and
+          abs(sol["primal objective"] + 9.0) <= 1e-6, "lp userguide: x")
+    sol = run("socp userguide", lambda: solvers.socp(
+        socp[0], Gq=socp[1], hq=socp[2]), SOCP_KEYS)
+    check(np.abs(host(sol["x"]) - [-5.0147, -5.7669, -8.5217]).max() <= 2e-3
+          and len(sol["zq"]) == 2, "socp userguide: x")
+    sol = run("sdp userguide", lambda: solvers.sdp(
+        sdp[0], Gs=sdp[1], hs=sdp[2]), SDP_KEYS)
+    check(np.abs(host(sol["x"]) - [-0.3677, 1.8983, -0.8874]).max() <= 1e-3
+          and [tuple(t.shape) for t in sol["zs"]] == [(2, 2), (3, 3)],
+          "sdp userguide: x")
+    sol = run("lp primal infeasible", lambda: solvers.lp(*pinf), LP_KEYS,
+              "primal infeasible")
+    zc = host(sol["z"])
+    check(sol["x"] is None and (zc >= -1e-8).all() and
+          np.abs(pinf[1].T @ zc).max() <= 1e-6 and
+          abs(float(pinf[2] @ zc) + 1.0) <= 1e-6,
+          "lp primal infeasible: certificate")
+    sol = run("lp dual infeasible", lambda: solvers.lp(*dinf), LP_KEYS,
+              "dual infeasible")
+    xc, sc = host(sol["x"]), host(sol["s"])
+    check(sol["z"] is None and (sc >= -1e-8).all() and
+          abs(float(dinf[0] @ xc) + 1.0) <= 1e-6 and
+          np.abs(dinf[1] @ xc + sc).max() <= 1e-6,
+          "lp dual infeasible: certificate")
+    print("front ends: every certificate meets its identities (h'z = -1, "
+          "G'z = 0, z >= 0; c'x = -1, Gx + s = 0, s >= 0)")
+    return lqs
+
+
 def cpu_solve(name, threads):
     """In a worker process: the phase's problems on CPU tensors, the
-    kernels' plain versions -> (x, iterations, status, seconds)."""
+    kernels' plain versions -> (x, iterations, status, seconds); x over
+    tau for the LP batch."""
     os.nice(10)
     torch.set_num_threads(threads)
-    from kvxopt_tpu_torch.convert import problem_to_torch, state_to_numpy
-    from kvxopt_tpu_torch.parallel import batched_qp_solver_mixed
+    from kvxopt_tpu_torch import ConeDims, solvers
+    from kvxopt_tpu_torch.convert import (lp_state_to_numpy,
+                                          problem_to_torch, state_to_numpy)
+    from kvxopt_tpu_torch.parallel import (batched_lp_solver,
+                                           batched_qp_solver_mixed)
+    if name == "lp batch":
+        data = problem_to_torch(*grid_scenarios(), device="cpu")
+        t0 = time.perf_counter()
+        out = lp_state_to_numpy(batched_lp_solver(
+            ConeDims(l=2 * K_GRID), options=LP_OPTIONS)(*data))
+        return (out[0] / out[4][:, None], out[6], out[7],
+                time.perf_counter() - t0)
+    if name == "conelp l+q+s":
+        data = [torch.from_numpy(a) for a in lqs_lp(0)]
+        t0 = time.perf_counter()
+        sol = solvers.conelp(*data, LQS_DIMS)
+        return (sol["x"].numpy()[None], np.array([sol["iterations"]]),
+                np.array([sol["status"]]), time.perf_counter() - t0)
     dims, data = slice_data(name)
     # facref explicit: on the card the "vmap" default resolves it on
     solve = batched_qp_solver_mixed(dims, {"facref": True},
@@ -913,12 +1217,13 @@ def cpu_solve(name, threads):
     return out[0], out[4], out[5], time.perf_counter() - t0
 
 
-def start_cpu_solves(names):
-    """Phases 4, 6 and 10 in spawned worker processes (no CUDA state is
-    forked), sharing the cores the card's phases leave."""
+def start_cpu_solves(names, workers=3):
+    """The CPU solves of phases 4, 6, 10, 11 and 12 in `workers` spawned
+    processes (no CUDA state is forked), sharing the cores the card's
+    phases leave; they start in the order of `names`."""
     global POOL
-    threads = max(1, ((os.cpu_count() or 4) - 2) // len(names))
-    POOL = multiprocessing.get_context("spawn").Pool(len(names))
+    threads = max(1, ((os.cpu_count() or 4) - 2) // workers)
+    POOL = multiprocessing.get_context("spawn").Pool(workers)
     return {n: POOL.apply_async(cpu_solve, (n, threads)) for n in names}
 
 
@@ -946,8 +1251,10 @@ def main():
     dev = torch.device("cuda:0")
     phase0()
     stamp("phase 0")
-    names = ("slice", "slice l+q+eq", "slice l+q+s")
-    pending = start_cpu_solves(names)
+    # the longest CPU solve first, then the two short ones of phases 11
+    # and 12, so that the other two start once those are done
+    pending = start_cpu_solves(("slice l+q+s", "lp batch", "conelp l+q+s",
+                                "slice", "slice l+q+eq"))
     rows = phase1(dev)
     k1_times(dev)
     stamp("phase 1")
@@ -972,11 +1279,17 @@ def main():
     stamp("phase 8")
     ldl_check(dev)
     stamp("phase 9")
-    for name, g in zip(names, (gpu, gpu_eq, gpu_s)):
+    gpu_lp = lp_batch(dev)
+    stamp("phase 11")
+    gpu_lqs = front_ends(dev)
+    stamp("phase 12")
+    for name, g in (("slice", gpu), ("slice l+q+eq", gpu_eq),
+                    ("slice l+q+s", gpu_s), ("lp batch", gpu_lp),
+                    ("conelp l+q+s", gpu_lqs)):
         cpu_phase(name, pending[name], g)
     POOL.close()
     POOL.join()
-    stamp("phases 4, 6 and 10")
+    stamp("phases 4, 6, 10 and the CPU solves of 11 and 12")
 
     launches["K4"] = k4_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",

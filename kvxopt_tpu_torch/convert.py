@@ -64,6 +64,16 @@ def scaling_from_jax(dims, d, beta, v, r=(), rti=(), device="cuda",
         r=per_group(sgroups, r), rti=per_group(sgroups, rti))
 
 
+def _per_block(groups, fields, nblocks, pick):
+    """Per-group fields (one tensor per group, the group's blocks on axis
+    1) -> one entry per block, pick(field, j) taking block j."""
+    out = [None] * nblocks
+    for gi, g in enumerate(groups):
+        for j, k in enumerate(g.idxs):
+            out[k] = pick(fields[gi], j)
+    return tuple(out)
+
+
 def scaling_to_jax(dims, W):
     """(d, beta, v, r, rti) of the port's NTScaling in the JAX package's
     layout, numpy with a leading batch axis: beta and v one entry per q
@@ -71,16 +81,32 @@ def scaling_to_jax(dims, W):
     dims = dims_from(dims)
     qgroups, sgroups = block_groups(dims)
 
-    def per_block(groups, fields, nblocks):
-        out = [None] * nblocks
-        for gi, g in enumerate(groups):
-            for j, k in enumerate(g.idxs):
-                out[k] = fields[gi][:, j].cpu().numpy()
-        return tuple(out)
-    return (W.d.cpu().numpy(), per_block(qgroups, W.beta, len(dims.q)),
-            per_block(qgroups, W.v, len(dims.q)),
-            per_block(sgroups, W.r, len(dims.s)),
-            per_block(sgroups, W.rti, len(dims.s)))
+    def pick(f, j):
+        return f[:, j].cpu().numpy()
+    return (W.d.cpu().numpy(),
+            *(_per_block(qgroups, fields, len(dims.q), pick)
+              for fields in (W.beta, W.v)),
+            *(_per_block(sgroups, fields, len(dims.s), pick)
+              for fields in (W.r, W.rti)))
+
+
+def scaling_instance(dims, W, lane=0):
+    """One lane of the port's NTScaling in the JAX package's
+    single-instance layout, as tensors on W's device: d (l,), beta a
+    tuple of 0-d tensors and v a tuple of (m,) per q block, r and rti
+    tuples of (m, m) per s block.  A custom kktsolver of the front ends
+    receives this."""
+    dims = dims_from(dims)
+    qgroups, sgroups = block_groups(dims)
+
+    def pick(f, j):
+        return f[lane, j]
+    return NTScaling(
+        d=W.d[lane],
+        beta=_per_block(qgroups, W.beta, len(dims.q), pick),
+        v=_per_block(qgroups, W.v, len(dims.q), pick),
+        r=_per_block(sgroups, W.r, len(dims.s), pick),
+        rti=_per_block(sgroups, W.rti, len(dims.s), pick))
 
 
 def state_to_numpy(out):
@@ -91,3 +117,13 @@ def state_to_numpy(out):
     x, y, s, z, it, status, m = out
     return (cpu(x), cpu(y), cpu(s), cpu(z), cpu(it), cpu(status),
             Metrics(*(cpu(a) for a in m)))
+
+
+def lp_state_to_numpy(out):
+    """The port's conelp state (x, y, s, z, tau, kappa, iterations,
+    status, metrics) -> numpy, in the JAX package's layout (metrics a
+    dict of arrays)."""
+    def cpu(t):
+        return t.detach().cpu().numpy()
+    *arrays, m = out
+    return (*(cpu(a) for a in arrays), {k: cpu(v) for k, v in m.items()})

@@ -1,4 +1,4 @@
 """Scenario-batched solve drivers."""
 
-from .batch import (batched_qp_solver, batched_qp_solver_mixed,  # noqa: F401
-                    make_qp_solver)
+from .batch import (batched_lp_solver, batched_qp_solver,  # noqa: F401
+                    batched_qp_solver_mixed, make_lp_solver, make_qp_solver)

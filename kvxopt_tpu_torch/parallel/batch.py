@@ -3,23 +3,48 @@
 Counterpart of kvxopt_tpu/parallel/batch.py.  The JAX package vmapped a
 single-instance solve; here the solve itself carries the batch
 dimension, with a per-lane status mask in place of vmap's lockstep.
+Both IPMs are here: the cone QP (make_qp_solver) and the self-dual
+cone LP (make_lp_solver).
 Mesh sharding and the host-dispatch wrapper are not ported (ROADMAP.md,
 Queue 1).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kkt
 from ..cones import ConeDims
-from ..kkt import _mv, _tmv
-from ..solvers.coneprog import OPTIMAL, Options, _coneqp_core
+from ..solvers._conelp import _conelp_core
+from ..solvers.coneprog import (OPTIMAL, Options, _coneqp_core, _matrix_ops,
+                                _solve_device)
 
 
 def _options(options):
     return options if isinstance(options, Options) else Options(
         **(options or {}))
+
+
+def _tensors(*arrays):
+    """The inputs as tensors: tensors as they are, array-likes (numpy)
+    on the first tensor's device, else on config.default_device, which
+    raises where that is the card and there is none."""
+    dev = _solve_device(*arrays)
+    return tuple(a if a is None or isinstance(a, torch.Tensor)
+                 else torch.as_tensor(np.asarray(a), device=dev)
+                 for a in arrays)
+
+
+def _cast(lead, mats, A, b):
+    """mats, A and b cast to lead's dtype and device; A (B, 0, n) and
+    b (B, 0) of zeros where A is None."""
+    B, n = lead.shape
+    mats = tuple(a.to(dtype=lead.dtype, device=lead.device) for a in mats)
+    if A is None:
+        return mats, lead.new_zeros((B, 0, n)), lead.new_zeros((B, 0))
+    A, b = (a.to(dtype=lead.dtype, device=lead.device) for a in (A, b))
+    return mats, A, b
 
 
 def _no_mesh(mesh):
@@ -34,9 +59,10 @@ def make_qp_solver(dims, kktsolver=None, options=None, with_eq=False):
 
     The inputs carry a leading batch dimension (P (B,n,n), q (B,n),
     G (B,m,n), h (B,m), A (B,p,n), b (B,p)), in place of the JAX
-    package's vmap; a single instance (q of shape (n,)) is solved as a
-    batch of one and returned without the batch dimension, as the JAX
-    function returns it.  A and b are optional at every call, as in the
+    package's vmap; numpy inputs go to config.default_device (the
+    card).  A single instance (q of shape (n,)) is solved as a batch of
+    one and returned without the batch dimension, as the JAX function
+    returns it.  A and b are optional at every call, as in the
     JAX function, which takes with_eq only for its signature.  The KKT
     strategy defaults to 'chol' with q or s cones and 'chol2' otherwise
     (the reference coneqp default)."""
@@ -47,34 +73,49 @@ def make_qp_solver(dims, kktsolver=None, options=None, with_eq=False):
     o = o.resolve_refinement(dims, kktsolver)
 
     def solve(P, q, G, h, A=None, b=None):
+        P, q, G, h, A, b = _tensors(P, q, G, h, A, b)
         if q.ndim == 1:
             ab = () if A is None else (A[None], b[None])
             out = solve(P[None], q[None], G[None], h[None], *ab)
             return (*(a[0] for a in out[:6]),
                     type(out[6])(*(a[0] for a in out[6])))
-        dtype, dev = q.dtype, q.device
-        # cast everything to q's dtype and device
-        P, G, h = (a.to(dtype=dtype, device=dev) for a in (P, G, h))
-        if A is None:
-            A = torch.zeros((q.shape[0], 0, q.shape[1]), dtype=dtype,
-                            device=dev)
-            b = torch.zeros((q.shape[0], 0), dtype=dtype, device=dev)
-        else:
-            A, b = (a.to(dtype=dtype, device=dev) for a in (A, b))
+        (P, G, h), A, b = _cast(q, (P, G, h), A, b)
         factor = kkt.make_kkt_solver(kktsolver, dims, G, A, P,
                                      reg=o.kktreg, ozaki=o.ozaki,
                                      facref=o.facref)
+        return _coneqp_core(q, h, b, dims, o, factor, *_matrix_ops(G, A, P))
 
-        def gmv(v, trans=False):
-            return _tmv(G, v) if trans else _mv(G, v)
+    return solve
 
-        def amv(v, trans=False):
-            return _tmv(A, v) if trans else _mv(A, v)
 
-        def pmv(v):
-            return _mv(P, v)
+def make_lp_solver(dims, kktsolver=None, options=None):
+    """Returns solve(c, G, h[, A, b]) -> conelp state tuple
+    (x, y, s, z, tau, kappa, iterations, status, metrics), metrics a dict
+    of pcost, dcost, gap, relgap, pres, dres, pinfres and dinfres: the
+    conelp counterpart of make_qp_solver, batched the same way (c (B, n),
+    G (B, m, n), h (B, m), A (B, p, n), b (B, p); a single instance is a
+    batch of one).  The data are taken as given: s-block rows are not
+    symmetrized.  The KKT strategy defaults to 'qr' with q or s cones and
+    'chol2' otherwise (the reference conelp default)."""
+    dims = ConeDims.from_dict(dims)
+    o = _options(options)
+    if kktsolver is None:
+        kktsolver = "qr" if (dims.q or dims.s) else "chol2"
+    o = o.resolve_refinement(dims, kktsolver)
 
-        return _coneqp_core(q, h, b, dims, o, factor, gmv, amv, pmv)
+    def solve(c, G, h, A=None, b=None):
+        c, G, h, A, b = _tensors(c, G, h, A, b)
+        if c.ndim == 1:
+            ab = () if A is None else (A[None], b[None])
+            out = solve(c[None], G[None], h[None], *ab)
+            return (*(a[0] for a in out[:8]),
+                    {k: v[0] for k, v in out[8].items()})
+        (G, h), A, b = _cast(c, (G, h), A, b)
+        factor = kkt.make_kkt_solver(kktsolver, dims, G, A, None,
+                                     reg=o.kktreg, ozaki=o.ozaki,
+                                     facref=o.facref)
+        gmv, amv, _ = _matrix_ops(G, A, None)
+        return _conelp_core(c, h, b, dims, o, factor, gmv, amv)
 
     return solve
 
@@ -92,6 +133,12 @@ def batched_qp_solver(dims, kktsolver=None, options=None, mesh=None,
     """solve(P[B], q[B], G[B], h[B][, A[B], b[B]]) -> batched state."""
     _no_mesh(mesh)
     return make_qp_solver(dims, kktsolver, _vmap_facref(options), with_eq)
+
+
+def batched_lp_solver(dims, kktsolver=None, options=None, mesh=None):
+    """solve(c[B], G[B], h[B][, A[B], b[B]]) -> batched conelp state."""
+    _no_mesh(mesh)
+    return make_lp_solver(dims, kktsolver, _vmap_facref(options))
 
 
 def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):

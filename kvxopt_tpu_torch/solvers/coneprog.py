@@ -1,13 +1,17 @@
-"""Batched cone-QP interior-point solve.
+"""Cone QPs: the batched interior-point core and the coneqp/qp front ends.
 
-Counterpart of the coneqp core of kvxopt_tpu/solvers/coneprog.py: the
+Counterpart of kvxopt_tpu/solvers/coneprog.py.  The core is the
 primal-dual Mehrotra predictor-corrector with Nesterov-Todd scaling,
 run as a Python loop over tensors that hold a whole batch of problems,
 one lane per problem.  A lane whose status is no longer RUNNING keeps
 its state, its iteration count and its metrics while the other lanes
 iterate, as under the JAX package's vmapped lax.while_loop.
 
-The front ends (coneqp, qp) and the conelp solver are not ported yet
+The front ends take plain arrays (or tensors), solve one instance as a
+batch of one, and return the reference's result dictionary.  Array-like
+inputs go to config.default_device (the card); tensors keep their own
+device.  Custom vector spaces, the `solver=` routes other than the
+native one, executor dispatch and options['profile'] are not ported yet
 (ROADMAP.md, Queue 1).
 """
 
@@ -16,10 +20,12 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from .. import cones
+from .. import cones, config, kkt
 from ..cones import ConeDims
+from ..kkt import _mv, _tmv
 
 # status codes
 RUNNING, OPTIMAL, UNKNOWN, PRIMAL_INFEASIBLE, DUAL_INFEASIBLE, SINGULAR = (
@@ -66,6 +72,164 @@ class Options(NamedTuple):
         return self._replace(refinement=auto)
 
 
+def _resolve_options(options):
+    """(Options, dtype): the global solvers.options with the per-call
+    options over them; the 'dtype' key picks the solve's dtype (default
+    config.default_dtype)."""
+    from . import options as global_options
+    merged = dict(global_options)
+    if options:
+        merged.update(options)
+    o = Options(
+        maxiters=int(merged.get("maxiters", 100)),
+        abstol=float(merged.get("abstol", 1e-7)),
+        reltol=float(merged.get("reltol", 1e-6)),
+        feastol=float(merged.get("feastol", 1e-7)),
+        refinement=int(merged.get("refinement", -1)),
+        show_progress=bool(merged.get("show_progress", False)),
+        kktreg=float(merged.get("kktreg", 0.0) or 0.0),
+        sscaling=str(merged.get("sscaling", "eigh")),
+        ozaki=bool(merged.get("ozaki", config.ozaki_refine)),
+        facref=bool(merged.get("facref", config.factor_refine)),
+    )
+    dtype = config._torch_dtype(merged.get("dtype", None) or
+                                config.default_dtype)
+    return o, dtype
+
+
+def _solve_device(*args):
+    """The device of a front-end solve: that of the first tensor among
+    args, else config.default_device.  Raises where that is the card and
+    there is none: nothing falls back to the CPU."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    dev = config.default_device
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass tensors on another device, or name one "
+            "with kvxopt_tpu_torch.config.set_default_device('cpu')")
+    return dev
+
+
+def _asarray(x, dtype, device, shape=None, name="argument"):
+    """x as a tensor of `dtype` on `device`; (n, 1) becomes (n,) where a
+    vector is expected, and `shape` is checked."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        a = x.to(device=device, dtype=dtype)
+    else:
+        a = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    if a.ndim == 2 and a.shape[1] == 1 and (shape is None or len(shape) == 1):
+        a = a[:, 0]
+    if shape is not None and tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(a.shape)}, expected "
+                         f"{tuple(shape)}")
+    return a
+
+
+def _numel(x):
+    return x.numel() if isinstance(x, torch.Tensor) else np.asarray(x).size
+
+
+def _refuse_vector_spaces(*hooks):
+    if any(f is not None for f in hooks):
+        raise NotImplementedError(
+            "custom vector spaces (xnewcopy/xdot/xscal/xaxpy and the y* "
+            "hooks) are not ported yet (ROADMAP.md, Queue 1)")
+
+
+def _refuse_solver(solver, routes):
+    """The routes other than the native solver that the JAX function
+    takes raise; other names fall through to the native solver, as
+    there."""
+    if solver in routes:
+        raise NotImplementedError(
+            f"solver={solver!r} is not ported yet; only the native solver "
+            "runs (ROADMAP.md, Queue 1 item 7)")
+
+
+def _matrix_ops(G, A, P):
+    """gmv, amv and pmv of batched matrices G (B, m, n), A (B, p, n) and
+    P (B, n, n); gmv and amv take trans=True for G' and A'."""
+    def gmv(v, trans=False):
+        return _tmv(G, v) if trans else _mv(G, v)
+
+    def amv(v, trans=False):
+        return _tmv(A, v) if trans else _mv(A, v)
+
+    def pmv(v):
+        return _mv(P, v)
+
+    return gmv, amv, pmv
+
+
+def _instance_op(f):
+    """A user operator on one instance's vectors, f(v) or f(v, trans=True),
+    as an operator on a batch of one, (1, k) tensors."""
+    def op(v, trans=False):
+        out = f(v[0], trans=True) if trans else f(v[0])
+        return torch.as_tensor(out, dtype=v.dtype, device=v.device)[None]
+    return op
+
+
+def _instance_factor(kktsolver, dims):
+    """A user kktsolver(W) -> solve(bx, by, bz) on one instance as a KKT
+    strategy over a batch of one: W reaches it in the JAX package's
+    layout (convert.scaling_instance), solve works on unbatched
+    vectors."""
+    from ..convert import scaling_instance
+
+    def factor(W, H=None, Df=None):
+        solve1 = kktsolver(scaling_instance(dims, W))
+
+        def solve(bx, by, bz):
+            return tuple(
+                torch.as_tensor(u, dtype=bx.dtype, device=bx.device)[None]
+                for u in solve1(bx[0], by[0], bz[0]))
+        return solve
+    return factor
+
+
+def _constraints(G, h, dims, A, b, n, dtype, dev):
+    """The front ends' constraint data as batches of one: (dims, h (1, m),
+    b (1, p), G (1, m, n), A (1, p, n)), G and A None where they are
+    operators.  The s blocks of G and h are made symmetric from their
+    lower triangle (column-major storage)."""
+    if dims is None:
+        dims = ConeDims(l=int(_numel(h)))
+    dims = ConeDims.from_dict(dims)
+    if dims.degree == 0:
+        raise ValueError("the cone must be nonempty")
+    h = cones.sym_from_lower(dims, _asarray(
+        h, dtype, dev, shape=(dims.size,), name="h")[None])
+    b = (_asarray(b, dtype, dev, name="b") if b is not None
+         else torch.zeros((0,), dtype=dtype, device=dev))[None]
+    Ga = None if callable(G) else cones.sym_from_lower_cols(dims, _asarray(
+        G, dtype, dev, shape=(dims.size, n), name="G")[None])
+    Aa = None if callable(A) else (
+        torch.zeros((1, 0, n), dtype=dtype, device=dev) if A is None
+        else _asarray(A, dtype, dev, shape=(b.shape[1], n), name="A")[None])
+    return dims, h, b, Ga, Aa
+
+
+def _front_end_ops(dims, o, kktsolver, given, batched):
+    """(factor, gmv, amv, pmv) of a front-end solve: `given` the caller's
+    (G, A, P), `batched` their batch-of-one tensors (None for an
+    operator).  A named strategy factors the tensors; operators need the
+    caller's own kktsolver."""
+    if isinstance(kktsolver, str):
+        if any(callable(M) for M in given):
+            raise ValueError("operator-form P/G/A require a custom kktsolver")
+        factor = kkt.make_kkt_solver(kktsolver, dims, *batched, reg=o.kktreg,
+                                     ozaki=o.ozaki, facref=o.facref)
+    else:
+        factor = _instance_factor(kktsolver, dims)
+    return (factor, *(_instance_op(M) if callable(M) else op
+                      for M, op in zip(given, _matrix_ops(*batched))))
+
+
 class Metrics(NamedTuple):
     pcost: torch.Tensor
     dcost: torch.Tensor
@@ -97,12 +261,30 @@ def _where(mask, a, b):
     return torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
 
 
+def _qp_metrics_dict(dims, m: Metrics, s, z):
+    """The metrics of one lane's result dictionary: m holds 0-d tensors,
+    s and z are (size,)."""
+    relgap = float(m.relgap)
+    ts, tz = cones.max_step2(dims, s[None], z[None])
+    return {
+        "primal objective": float(m.pcost),
+        "dual objective": float(m.dcost),
+        "gap": float(m.gap),
+        "relative gap": None if not math.isfinite(relgap) else relgap,
+        "primal infeasibility": float(m.pres),
+        "dual infeasibility": float(m.dres),
+        "primal slack": -float(ts[0]),
+        "dual slack": -float(tz[0]),
+    }
+
+
 def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
-                 pmv):
+                 pmv, init=None):
     """Batched coneqp driver: q (B, n), h (B, m), b (B, p), `factor(W)` a
     KKT strategy over the batch, gmv/amv/pmv batched operator products
-    (gmv and amv take trans=True for G' and A').  Returns the final
-    state (x, y, s, z, iterations, status, metrics)."""
+    (gmv and amv take trans=True for G' and A'); init, if given, the
+    starting (x, y, s, z), each (B, .).  Returns the final state
+    (x, y, s, z, iterations, status, metrics)."""
     B, dtype, dev = q.shape[0], q.dtype, q.device
     p = b.shape[-1]
     deg = dims.degree
@@ -142,6 +324,8 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
         return dx, dy, dz, ds
 
     def initial_point():
+        if init is not None:
+            return init
         W0 = cones.identity_scaling(dims, B, dtype, dev)
         x0, y0, z0 = factor(W0)(-q, b, h)
         s0 = -z0
@@ -239,3 +423,76 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
         it = torch.where(live, it + 1, it)
         m = Metrics(*(torch.where(live, a, b_) for a, b_ in zip(mm, m)))
     return x, y, s, z, it, status, m
+
+
+def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None, initvals=None,
+           kktsolver=None, options=None, xnewcopy=None, xdot=None,
+           xscal=None, xaxpy=None, ynewcopy=None, ydot=None, yscal=None,
+           yaxpy=None):
+    """Solve the cone QP
+
+        minimize    (1/2) x'Px + q'x
+        subject to  G x + s = h,  s in K
+                    A x = b
+
+    (reference coneprog.py:1440) and return the reference's result
+    dictionary: status, x/y/s/z (tensors on the solve's device), primal
+    and dual objective, gap, relative gap, primal and dual infeasibility,
+    primal and dual slack, iterations.
+
+    The s blocks of G and h are read from their lower triangle
+    (column-major storage).  P, G and A may be operators, P(v) and
+    G(v, trans=False) on one instance's vectors, with a custom
+    kktsolver(W) -> solve(bx, by, bz): W holds d, and beta, v, r and rti
+    one entry per q or s block (convert.scaling_instance).  initvals
+    may be partial: x and y default to zero, s and z to the cone's
+    identity."""
+    _refuse_vector_spaces(xnewcopy, xdot, xscal, xaxpy, ynewcopy, ydot,
+                          yscal, yaxpy)
+    o, dtype = _resolve_options(options)
+    dev = _solve_device(q, h, G, P, A, b)
+    q = _asarray(q, dtype, dev, name="q")
+    n = q.shape[0]
+    if G is None and dims is None:
+        raise ValueError("G and dims required (use a pure QP via A only is "
+                         "not supported without inequalities)")
+    dims, h, b, Ga, Aa = _constraints(G, h, dims, A, b, n, dtype, dev)
+    p = b.shape[-1]
+    Pa = None if callable(P) else (
+        torch.zeros((1, n, n), dtype=dtype, device=dev) if P is None
+        else _asarray(P, dtype, dev, shape=(n, n), name="P")[None])
+    if kktsolver is None:
+        kktsolver = "chol" if (dims.q or dims.s) else "chol2"
+    o = o.resolve_refinement(dims, kktsolver)
+    factor, gmv, amv, pmv = _front_end_ops(dims, o, kktsolver, (G, A, P),
+                                           (Ga, Aa, Pa))
+
+    init = None
+    if initvals is not None:
+        e0 = cones.cone_e(dims, dtype, dev)
+        defaults = {"x": torch.zeros((n,), dtype=dtype, device=dev),
+                    "y": torch.zeros((p,), dtype=dtype, device=dev),
+                    "s": e0, "z": e0}
+        init = tuple(
+            (_asarray(initvals[k], dtype, dev, name=k)
+             if initvals.get(k) is not None else defaults[k])[None]
+            for k in ("x", "y", "s", "z"))
+
+    x, y, s, z, it, status, m = _coneqp_core(
+        q[None], h, b, dims, o, factor, gmv, amv, pmv, init=init)
+    m = Metrics(*(a[0] for a in m))
+    return _result_dict(int(status[0]), x[0], y[0], s[0], z[0], dims,
+                        _qp_metrics_dict(dims, m, s[0], z[0]),
+                        int(it[0]) - 1)
+
+
+def qp(P, q, G=None, h=None, A=None, b=None, solver=None, initvals=None,
+       kktsolver=None, options=None):
+    """Natural-form QP (reference coneprog.py:4187): minimize
+    (1/2)x'Px + q'x s.t. Gx <= h, Ax = b, through coneqp.  The routes
+    solver='osqp', 'mosek' and 'gurobi' are not ported yet."""
+    _refuse_solver(solver, ("osqp", "gurobi", "mosek"))
+    if G is None and h is None:
+        raise ValueError("qp requires inequality constraints G, h")
+    return coneqp(P, q, G, h, {"l": int(_numel(h))}, A, b, initvals=initvals,
+                  kktsolver=kktsolver, options=options)
