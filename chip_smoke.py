@@ -4,8 +4,9 @@ on one GPU: the kernel entry point kvxopt_tpu_torch.ops.batched_cholesky
 (K4); the two-pass batched mixed-precision cone-QP solve, on the
 orthant, on orthant + second-order cones + equality constraints, and on
 orthant + second-order + semidefinite cones; the batched cone-LP solve;
-and the cone-program front ends (solvers.coneqp/qp/conelp/lp/socp/sdp)
-with numpy data and no device named.
+the cone-program front ends (solvers.coneqp/qp/conelp/lp/socp/sdp)
+with numpy data and no device named; and the nonlinear front ends
+(solvers.cp/cpl/gp, cvxprog.oracle_from_function).
 
     python3 chip_smoke.py
 
@@ -72,15 +73,29 @@ Phases (any failure exits non-zero and prints no result):
      SDP and the primal- and dual-infeasible LPs (their certificates'
      identities), all with numpy data: each result has the JAX
      function's key set and its tensors on the card; each call's warm
-     median of 3 is printed.
-The CPU solves of phases 4, 6, 10, 11 and 12 run in three worker
+     median of 3 is printed;
+ 13. "nonlinear": cp on examples/acent.py's analytic centering at
+     m=2000, n=1000 (the oracle on the card; optimal, b - Ax > 0,
+     |A'(1/(b-Ax))| <= 1e-6 (1+|b|)); cpl on lqs_lp(0)'s l+q+s cone LP
+     plus |x|^2 <= r^2 (default chol; optimal, the ball active, znl >
+     1e-8, c + Df'znl + G'zl and Gx + sl - h below 1e-6 relative, sl and
+     zl in the cone); gp on the userguide box (the documented h, w, d)
+     and on a seeded GP with n=256, K=[8]*65; cp on examples/acent2.py;
+     cpl with an oracle_from_function oracle of 64 variables, whose f, Df
+     and H agree with the hand-coded ones to 1e-10; per call the warm
+     median of 3, iterations, host syncs per iteration (torch.cuda's
+     sync debug mode), the device's busy share (profiler) and K1-K4's
+     launches (0: the f64 path); each call again on the CPU: same
+     status, iterations within 1, x within 1e-6 (1+|x|), the primal
+     objective within 1e-7 relative.
+The CPU solves of phases 4, 6, 10, 11, 12 and 13 run in three worker
 processes (spawned after the build, at lower priority, a few CPU threads
-each; phase 10's first, then the two short ones of 11 and 12, then
+each; phase 10's first, then the short ones of 11, 12 and 13, then
 phases 4 and 6) beside the card's phases, and are compared with the
 card's solves at the end; each phase prints the seconds since the
-start.  Phases 11 and 12 run the f64 chol2 and qr strategies
-(cuSOLVER), which launch none of K1-K4; they print the counts, set to 0
-before each solve.
+start.  Phases 11-13 run the f64 chol2, chol, qr and ldl strategies
+(cuSOLVER and torch), which launch none of K1-K4; they print the counts,
+set to 0 before each solve.
 Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
 and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
 synchronizing calls per IPM iteration.  The line before the card's line
@@ -109,8 +124,11 @@ L_EQ, Q_EQ, P_EQ = 512, (64,) * 8, 32   # phase 5: m = 512 + 8 * 64 = M
 L_S, Q_S, S_S = 256, (64,) * 4, (16,) * 2  # phase 7: m = 256+256+512 = M
 K_GRID = 384    # phase 11: n = k, m = 2k, as bench_configs.cfg_activsg
 SUB_SEED = 2000  # the stand-in for the ACTIVSg2000 submatrix
+M_AC, N_AC = 2000, 1000   # phase 13: analytic centering, A (m, n)
+N_GP, K_GP = 256, (8,) * 65  # phase 13: the seeded GP, 64 constraints
+N_OF = 64       # phase 13: oracle_from_function's variables
 T0 = time.perf_counter()
-POOL = None     # the worker processes of phases 4, 6 and 10
+POOL = None     # the worker processes of the CPU solves
 
 
 def fail(msg):
@@ -254,6 +272,158 @@ def lqs_lp(seed, n=N, l=L_S, qs=Q_S, ss=S_S):
     z0 += [np.r_[2.0, np.full(k - 1, 0.1)] for k in qs]
     z0 += [(np.eye(k) + 0.1 * np.ones((k, k))).ravel() for k in ss]
     return -G.T @ np.concatenate(z0), G, h
+
+
+def lqs_x0(seed, n=N, l=L_S, qs=Q_S, ss=S_S):
+    """lqs_problem's x0 (h = G x0 + s0 with s0 inside the cone), from the
+    same draws."""
+    rng = np.random.default_rng(seed)
+    m = l + sum(qs) + sum(k * k for k in ss)
+    rng.standard_normal((n, n))
+    rng.standard_normal(n)
+    rng.standard_normal((m, n))
+    return 0.1 * rng.standard_normal(n)
+
+
+def acent_data(m=M_AC, n=N_AC, seed=0):
+    """examples/acent.py's generator at m x n: A standard normal,
+    b = |A u| + uniform(0.5, 2) > 0, so x = 0 is strictly feasible."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n))
+    return A, np.abs(A @ rng.standard_normal(n)) + rng.uniform(0.5, 2.0, m)
+
+
+def acent_oracle(A, b):
+    """cp oracle of minimize -sum log(b - Ax) (examples/acent.py), on the
+    tensors' device: H = z0 A' diag(1/y^2) A."""
+    def F(x=None, z=None):
+        if x is None:
+            return 0, A.new_zeros(A.shape[1])
+        y = b - A @ x
+        f = -torch.sum(torch.log(y)).reshape(1)
+        Df = (A.T @ (1.0 / y)).reshape(1, -1)
+        if z is None:
+            return f, Df
+        return f, Df, z[0] * (A.T @ (A * (1.0 / y ** 2)[:, None]))
+    return F
+
+
+def ball_oracle(x0, r2):
+    """One nonlinear constraint |x|^2 - r2 <= 0, starting at x0."""
+    def F(x=None, z=None):
+        if x is None:
+            return 1, x0
+        f = (x @ x - r2).reshape(1)
+        Df = (2.0 * x).reshape(1, -1)
+        if z is None:
+            return f, Df
+        return f, Df, 2.0 * z[0] * torch.eye(x.shape[0], dtype=x.dtype,
+                                             device=x.device)
+    return F
+
+
+def ball_radius2(seed=0):
+    """r^2 of phase 13's l+q+s cpl: r = 1.1 |x0| with x0 = lqs_x0, so x0
+    is strictly feasible; the ball cuts off the cone LP's solution, which
+    the phase checks by znl > 1e-8."""
+    return (1.1 * np.linalg.norm(lqs_x0(seed))) ** 2
+
+
+def gp_userguide():
+    """examples/gp.py: the userguide's box (section 9.3), (K, F, g)."""
+    Aflr, Awall = 1000.0, 100.0
+    alpha, beta, gamma, delta = 0.5, 2.0, 0.5, 2.0
+    F = np.array([[-1., 1., 1., 0., -1., 1., 0., 0.],
+                  [-1., 1., 0., 1., 1., -1., 1., -1.],
+                  [-1., 0., 1., 1., 0., 0., -1., 1.]]).T
+    g = np.log([1.0, 2 / Awall, 2 / Awall, 1 / Aflr, alpha, 1 / beta,
+                gamma, 1 / delta])
+    return [1, 2, 1, 1, 1, 1, 1], F, g
+
+
+def gp_data(n=N_GP, K=K_GP, seed=0):
+    """A seeded GP, (K, F, g): the objective's 8 rows standard normal,
+    g0 standard normal; the 2n constraint rows [M; -M] (M standard
+    normal n x n) shuffled over the 64 blocks, which bounds the feasible
+    set, and g = log(uniform(0.5, 1) / 8), so lse(g_i) < 0: x = 0 is
+    strictly feasible."""
+    rng = np.random.default_rng(seed)
+    F0, g0 = rng.standard_normal((K[0], n)), rng.standard_normal(K[0])
+    Mx = rng.standard_normal((n, n))
+    Fc = np.vstack([Mx, -Mx])[rng.permutation(2 * n)]
+    gc = np.log(rng.uniform(0.5, 1.0, sum(K) - K[0]) / K[1])
+    return list(K), np.vstack([F0, Fc]), np.concatenate([g0, gc])
+
+
+ACENT2_G = np.array([
+    [0., -1., 0., 0., -21., -11., 0., -11., 10., 8., 0., 8., 5.],
+    [0., 0., -1., 0., 0., 10., 16., 10., -10., -10., 16., -10., 3.],
+    [0., 0., 0., -1., -5., 2., -17., 2., -6., 8., -17., -7., 6.]]).T
+ACENT2_H = np.array([1.0, 0.0, 0.0, 0.0, 20., 10., 40., 10., 80., 10.,
+                     40., 10., 15.])
+ACENT2_DIMS = {"l": 0, "q": [4], "s": [3]}
+
+
+def acent2_oracle(x=None, z=None):
+    """examples/acent2.py: minimize -sum log(1 - x_i^2), None outside
+    |x_i| < 1."""
+    if x is None:
+        return 0, np.zeros(3)
+    if float(torch.max(torch.abs(x))) >= 1.0:
+        return None
+    u = 1.0 - x ** 2
+    f = -torch.sum(torch.log(u)).reshape(1)
+    Df = (2.0 * x / u).reshape(1, -1)
+    if z is None:
+        return f, Df
+    return f, Df, torch.diag(2.0 * z[0] * (1.0 + x ** 2) / u ** 2)
+
+
+def smooth_data(n=N_OF, seed=3):
+    """Q = B B'/n + I and a: f(x) = (sum exp(a x) - 2n, x'Qx - 4)."""
+    rng = np.random.default_rng(seed)
+    Bm = rng.standard_normal((n, n))
+    return Bm @ Bm.T / n + np.eye(n), 0.5 * rng.standard_normal(n)
+
+
+def smooth_fn(Q, a):
+    def f(x):
+        return torch.stack([torch.sum(torch.exp(a * x)) - 2.0 * x.shape[0],
+                            x @ Q @ x - 4.0])
+    return f
+
+
+def smooth_by_hand(Q, a, x, z):
+    """f, Df and H = z0 d2f0 + z1 d2f1 of smooth_fn, written out."""
+    ex = torch.exp(a * x)
+    f = torch.stack([ex.sum() - 2.0 * x.shape[0], x @ Q @ x - 4.0])
+    Df = torch.stack([a * ex, 2.0 * Q @ x])
+    return f, Df, z[0] * torch.diag(a * a * ex) + 2.0 * z[1] * Q
+
+
+def nonlinear_calls(dev):
+    """name -> a call of phase 13's solves as a user makes it: numpy data
+    (config.default_device), the oracles' own data as tensors on
+    `dev`."""
+    from kvxopt_tpu_torch import solvers
+    from kvxopt_tpu_torch.solvers.cvxprog import oracle_from_function
+    A, b = (torch.as_tensor(a, device=dev) for a in acent_data())
+    c, G, h = lqs_lp(0)
+    x0 = torch.as_tensor(lqs_x0(0), device=dev)
+    Q, a = (torch.as_tensor(v, device=dev) for v in smooth_data())
+    ofs = oracle_from_function(smooth_fn(Q, a), torch.zeros(
+        N_OF, dtype=torch.float64, device=dev))
+    return {
+        "cp acent": lambda: solvers.cp(acent_oracle(A, b)),
+        "cpl l+q+s+ball": lambda: solvers.cpl(
+            c, ball_oracle(x0, ball_radius2()), G, h, LQS_DIMS),
+        "gp userguide": lambda: solvers.gp(*gp_userguide()),
+        "gp seeded": lambda: solvers.gp(*gp_data()),
+        "cp acent2": lambda: solvers.cp(acent2_oracle, ACENT2_G, ACENT2_H,
+                                        ACENT2_DIMS),
+        "cpl oracle_from_function": lambda: solvers.cpl(-np.ones(N_OF),
+                                                        ofs),
+    }
 
 
 def phase0():
@@ -968,13 +1138,14 @@ def warm_times(fn, reps=3):
 
 
 def device_busy(fn):
-    """(wall s, device busy s) of one call under torch.profiler; busy is
-    None where the profiler saw no device events."""
+    """(wall s, device busy s) of one call under torch.profiler, tracing
+    the device alone (host operator events would make the trace of a
+    call that runs many small operations slow to read); busy is None
+    where the profiler saw no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -982,6 +1153,22 @@ def device_busy(fn):
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e6
     return wall, (busy or None)
+
+
+def count_syncs(fn):
+    """The host's waits for the card in one call: the synchronizing
+    operations (a tensor read to the host, .item(), .tolist(), a
+    data-dependent shape) that torch.cuda's sync debug mode reports."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def on_card(name, *tensors):
@@ -1184,12 +1371,166 @@ def front_ends(dev):
     return lqs
 
 
+def nonlinear(dev):
+    """Phase 13, "nonlinear": cp, cpl and gp through
+    kvxopt_tpu_torch.solvers as a user calls them (nonlinear_calls), the
+    kernel counts set to 0 before each call and read after: every call
+    ends optimal with its residuals below 1e-6; per call the warm median
+    of 3, iterations, host syncs per iteration and the device's busy
+    share over one profiled call.  Returns name -> (x, iterations,
+    status, primal objective) for the CPU comparison."""
+    from kvxopt_tpu_torch import ConeDims, cones
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch.solvers.cvxprog import oracle_from_function
+    calls = nonlinear_calls(dev)
+    out = {}
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        cl.reset_launches()
+        sol = fn()
+        torch.cuda.synchronize()
+        launches = dict(cl.LAUNCHES)
+        on_card(f"nonlinear {name}", *(sol[k] for k in
+                                       ("x", "y", "snl", "sl", "znl", "zl")))
+        ts = warm_times(fn)
+        wall, busy = device_busy(fn)
+        syncs = count_syncs(fn)
+        it = max(1, sol["iterations"])
+        print(f"nonlinear {name}: status {sol['status']}, iterations "
+              f"{sol['iterations']}, primal objective "
+              f"{sol['primal objective']!r}, warm median "
+              f"{1e3 * np.median(ts):.2f} ms (min {1e3 * min(ts):.2f}, max "
+              f"{1e3 * max(ts):.2f}, 3 calls), kernel launches {launches}",
+              flush=True)
+        print(f"nonlinear {name} profile (profiler on): wall {wall:.4f} s, " +
+              ("device busy not measured (no device events)" if busy is None
+               else f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%)") +
+              f"; host syncs {syncs} in one call, {syncs / it:.1f} per "
+              "iteration")
+        check(sol["status"] == "optimal",
+              f"nonlinear {name}: status {sol['status']}")
+        check(not any(launches.values()),
+              f"nonlinear {name}: a kernel of K1-K4 ran on the f64 path")
+        out[name] = (host(sol["x"]), sol["iterations"], sol["status"],
+                     sol["primal objective"])
+        if name == "cp acent":
+            A, b = acent_data()
+            x = out[name][0]
+            y = b - A @ x
+            g = np.linalg.norm(A.T @ (1.0 / y)) / (1 + np.linalg.norm(b))
+            print(f"nonlinear {name} m={M_AC} n={N_AC}: min(b - Ax) "
+                  f"{y.min():.3e} (> 0), |A'(1/(b-Ax))|/(1+|b|) {g:.3e} "
+                  "(tol 1e-6)")
+            check(y.min() > 0 and g <= 1e-6, f"nonlinear {name}: not the "
+                  "analytic center")
+        elif name == "cpl l+q+s+ball":
+            c, G, h = lqs_lp(0)
+            dims = ConeDims.from_dict(LQS_DIMS)
+            x, znl, zl, sl = (host(sol[k]) for k in ("x", "znl", "zl", "sl"))
+            rd = np.linalg.norm(c + 2.0 * znl[0] * x + G.T @ zl) / (
+                1 + np.linalg.norm(c))
+            rp = np.linalg.norm(G @ x + sl - h) / (1 + np.linalg.norm(h))
+            ts_, tz_ = cones.max_step2(dims, sol["sl"][None],
+                                       sol["zl"][None])
+            print(f"nonlinear {name} n={N} l={L_S} q={list(Q_S)} "
+                  f"s={list(S_S)}: znl {znl[0]!r} (> 1e-8: the ball is "
+                  f"active), |x|^2 - r^2 {float(x @ x) - ball_radius2():.3e}, "
+                  f"c + Df'znl + G'zl {rd:.3e}, Gx + sl - h {rp:.3e} (tol "
+                  f"1e-6), max_step(sl) {float(ts_):.3e}, max_step(zl) "
+                  f"{float(tz_):.3e} (<= 0)")
+            check(znl[0] > 1e-8, f"nonlinear {name}: the ball is not active")
+            check(rd < 1e-6 and rp < 1e-6,
+                  f"nonlinear {name}: residuals too large")
+            check(float(ts_) <= 0 and float(tz_) <= 0,
+                  f"nonlinear {name}: sl or zl outside the cone")
+        elif name == "gp userguide":
+            hwd = np.exp(out[name][0])
+            print(f"nonlinear {name}: h = {hwd[0]:f}, w = {hwd[1]:f}, "
+                  f"d = {hwd[2]:f} (documented 2.8873, 5.7746, 11.5431)")
+            check(np.allclose(hwd, [2.8873, 5.7746, 11.5431], rtol=1e-3),
+                  f"nonlinear {name}: not the documented box")
+        elif name == "gp seeded":
+            K, F, g = gp_data()
+            x = out[name][0]
+            y = F @ x + g
+            ofs = np.cumsum([0] + K)
+            lse = [np.log(np.exp(y[i:j] - y[i:j].max()).sum()) + y[i:j].max()
+                   for i, j in zip(ofs[:-1], ofs[1:])]
+            print(f"nonlinear {name} n={N_GP} K=[{K[0]}]*{len(K)}: max "
+                  f"constraint lse {max(lse[1:]):.3e} (<= 1e-7), objective "
+                  f"{lse[0]!r}")
+            check(max(lse[1:]) <= 1e-7 and abs(lse[0] - sol[
+                "primal objective"]) <= 1e-6 * (1 + abs(lse[0])),
+                f"nonlinear {name}: infeasible or objective wrong")
+        elif name == "cp acent2":
+            x = out[name][0]
+            print(f"nonlinear {name}: x {x.tolist()}")
+            check(np.abs(x).max() < 1.0, f"nonlinear {name}: x outside the "
+                  "domain")
+        stamp(f"phase 13 {name}")
+
+    # oracle_from_function against the hand-coded f, Df and H
+    Q, a = (torch.as_tensor(v, device=dev) for v in smooth_data())
+    F = oracle_from_function(smooth_fn(Q, a), torch.zeros(
+        N_OF, dtype=torch.float64, device=dev))
+    g = torch.Generator().manual_seed(11)
+    x = (0.3 * torch.randn(N_OF, generator=g, dtype=torch.float64)).to(dev)
+    z = torch.rand(2, generator=g, dtype=torch.float64).to(dev) + 0.5
+    err = max(float((u - v).abs().max() / (1 + v.abs().max()))
+              for u, v in zip(F(x, z), smooth_by_hand(Q, a, x, z)))
+    print(f"nonlinear oracle_from_function n={N_OF}: max |autodiff - by "
+          f"hand| / (1 + |by hand|) over f, Df, H {err:.3e} (tol 1e-10)")
+    check(err <= 1e-10, "oracle_from_function disagrees with the "
+          "hand-coded derivatives")
+    return out
+
+
+def nonlinear_cpu():
+    """Phase 13's solves on the CPU -> name -> (x, iterations, status,
+    primal objective, seconds)."""
+    from kvxopt_tpu_torch import config
+    config.set_default_device("cpu")
+    out = {}
+    for name, fn in nonlinear_calls(torch.device("cpu")).items():
+        t0 = time.perf_counter()
+        sol = fn()
+        out[name] = (sol["x"].numpy(), sol["iterations"], sol["status"],
+                     sol["primal objective"], time.perf_counter() - t0)
+    return out
+
+
+def nonlinear_compare(pending, gpu):
+    """Phase 13's solves on the card against the same calls on the CPU:
+    the same status, iterations within 1, x within 1e-6 (1 + |x|), the
+    primal objective within 1e-7 (1 + |obj|)."""
+    try:
+        cpu = pending.get()
+    except Exception as e:  # noqa: BLE001  (the worker's error, reported)
+        fail(f"nonlinear: the CPU solves raised {e!r}")
+    for name, (xg, itg, stg, pg) in gpu.items():
+        x, it, st, p, secs = cpu[name]
+        dx = np.linalg.norm(xg - x) / (1 + np.linalg.norm(x))
+        dp = abs(pg - p) / (1 + abs(p))
+        print(f"nonlinear {name} cpu: {secs:.2f} s, status {st}, "
+              f"iterations {it} (card {itg}), |x_gpu-x_cpu|/(1+|x_cpu|) "
+              f"{dx:.3e} (tol 1e-6), objective {dp:.3e} (tol 1e-7)",
+              flush=True)
+        check(st == stg and abs(it - itg) <= 1 and dx <= 1e-6 and
+              dp <= 1e-7, f"nonlinear {name}: differs from the CPU")
+
+
 def cpu_solve(name, threads):
     """In a worker process: the phase's problems on CPU tensors, the
     kernels' plain versions -> (x, iterations, status, seconds); x over
-    tau for the LP batch."""
+    tau for the LP batch; phase 13's as nonlinear_cpu gives them."""
     os.nice(10)
     torch.set_num_threads(threads)
+    if name == "nonlinear":
+        return nonlinear_cpu()
     from kvxopt_tpu_torch import ConeDims, solvers
     from kvxopt_tpu_torch.convert import (lp_state_to_numpy,
                                           problem_to_torch, state_to_numpy)
@@ -1218,9 +1559,9 @@ def cpu_solve(name, threads):
 
 
 def start_cpu_solves(names, workers=3):
-    """The CPU solves of phases 4, 6, 10, 11 and 12 in `workers` spawned
-    processes (no CUDA state is forked), sharing the cores the card's
-    phases leave; they start in the order of `names`."""
+    """The CPU solves of phases 4, 6, 10, 11, 12 and 13 in `workers`
+    spawned processes (no CUDA state is forked), sharing the cores the
+    card's phases leave; they start in the order of `names`."""
     global POOL
     threads = max(1, ((os.cpu_count() or 4) - 2) // workers)
     POOL = multiprocessing.get_context("spawn").Pool(workers)
@@ -1254,7 +1595,7 @@ def main():
     # the longest CPU solve first, then the two short ones of phases 11
     # and 12, so that the other two start once those are done
     pending = start_cpu_solves(("slice l+q+s", "lp batch", "conelp l+q+s",
-                                "slice", "slice l+q+eq"))
+                                "nonlinear", "slice", "slice l+q+eq"))
     rows = phase1(dev)
     k1_times(dev)
     stamp("phase 1")
@@ -1283,13 +1624,16 @@ def main():
     stamp("phase 11")
     gpu_lqs = front_ends(dev)
     stamp("phase 12")
+    gpu_nl = nonlinear(dev)
+    stamp("phase 13")
     for name, g in (("slice", gpu), ("slice l+q+eq", gpu_eq),
                     ("slice l+q+s", gpu_s), ("lp batch", gpu_lp),
                     ("conelp l+q+s", gpu_lqs)):
         cpu_phase(name, pending[name], g)
+    nonlinear_compare(pending["nonlinear"], gpu_nl)
     POOL.close()
     POOL.join()
-    stamp("phases 4, 6, 10 and the CPU solves of 11 and 12")
+    stamp("phases 4, 6, 10 and the CPU solves of 11, 12 and 13")
 
     launches["K4"] = k4_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",

@@ -504,6 +504,8 @@ def ldl_nopiv(M, block: int = 64):
     Mp[:, :n, :n] = M
     _set_diag(Mp, n, nb, 1.0)
     L = torch.zeros_like(Mp)
+    _set_diag(L, 0, nb, 1.0)   # once: a scalar store per column would
+                               # copy the scalar to the card each time
     d = M.new_zeros((Bn, nb))
     for k0 in range(0, nb, block):
         k1 = k0 + block
@@ -512,7 +514,6 @@ def ldl_nopiv(M, block: int = 64):
         for j in range(block):
             pivot = Akk[:, j, j]
             col = Akk[:, j + 1:, j] / pivot[:, None]
-            Lkk[:, j, j] = 1.0
             Lkk[:, j + 1:, j] = col
             d[:, k0 + j] = pivot
             Akk[:, j + 1:, j + 1:] -= (col[:, :, None] * col[:, None, :] *

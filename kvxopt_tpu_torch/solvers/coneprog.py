@@ -10,9 +10,10 @@ iterate, as under the JAX package's vmapped lax.while_loop.
 The front ends take plain arrays (or tensors), solve one instance as a
 batch of one, and return the reference's result dictionary.  Array-like
 inputs go to config.default_device (the card); tensors keep their own
-device.  Custom vector spaces, the `solver=` routes other than the
-native one, executor dispatch and options['profile'] are not ported yet
-(ROADMAP.md, Queue 1).
+device.  The vector-space operations of custom x and y spaces (VecOps)
+live here; cvxprog's cpl and cp take them, coneqp and conelp do not
+yet.  The `solver=` routes other than the native one, executor dispatch
+and options['profile'] are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -137,7 +138,116 @@ def _refuse_vector_spaces(*hooks):
     if any(f is not None for f in hooks):
         raise NotImplementedError(
             "custom vector spaces (xnewcopy/xdot/xscal/xaxpy and the y* "
-            "hooks) are not ported yet (ROADMAP.md, Queue 1)")
+            "hooks) are ported for cpl and cp only, not for coneqp and "
+            "conelp yet (ROADMAP.md, Queue 1 item 11)")
+
+
+# ---------------------------------------------------------------------------
+# Custom vector spaces (the reference's third customization level,
+# coneprog.py:378-402: xnewcopy/xdot/xscal/xaxpy and the y* variants), as
+# kvxopt_tpu/solvers/coneprog.py renders them: an element is a tensor, or
+# a dict, list or tuple of them, nested; the hooks are pure functions
+# (xscal returns the scaled element, xaxpy returns alpha*u + v).
+# ---------------------------------------------------------------------------
+
+def _tree_leaves(u):
+    """The tensors of an element, dict entries in key order (as JAX
+    orders a pytree's leaves); None is an empty node."""
+    if isinstance(u, dict):
+        return [a for k in sorted(u) for a in _tree_leaves(u[k])]
+    if isinstance(u, (list, tuple)):
+        return [a for v in u for a in _tree_leaves(v)]
+    return [] if u is None else [u]
+
+
+def _tree_map(fn, u, *rest):
+    """fn over the leaves of u and of the elements in rest, which have
+    u's structure."""
+    if isinstance(u, dict):
+        return {k: _tree_map(fn, u[k], *(r[k] for r in rest)) for k in u}
+    if isinstance(u, (list, tuple)):
+        items = [_tree_map(fn, *vs) for vs in zip(u, *rest)]
+        return type(u)(*items) if hasattr(u, "_fields") else type(u)(items)
+    return None if u is None else fn(u, *rest)
+
+
+def _tree_dot(u, v):
+    s = 0.0
+    for a, b in zip(_tree_leaves(u), _tree_leaves(v)):
+        s = s + torch.sum(a * b)
+    return s
+
+
+def _tree_scal(alpha, u):
+    return _tree_map(lambda a: alpha * a, u)
+
+
+def _tree_axpy(u, v, alpha=1.0):
+    return _tree_map(lambda a, b: alpha * a + b, u, v)
+
+
+class VecOps(NamedTuple):
+    """Inner-product-space operations for one variable block (x or y):
+    the functional form of the reference's xnewcopy/xdot/xscal/xaxpy
+    contract (reference coneprog.py:378-402); the defaults handle any
+    nesting of tensors."""
+
+    dot: object = _tree_dot
+    scal: object = _tree_scal
+    axpy: object = _tree_axpy
+    copy: object = lambda u: u  # the hooks never write in place
+
+    def norm(self, u):
+        return torch.sqrt(torch.clamp(torch.as_tensor(self.dot(u, u)),
+                                      min=0.0))
+
+    def zero(self, like):
+        return _tree_map(torch.zeros_like, like)
+
+
+def _make_vecops(newcopy, dot, scal, axpy):
+    kw = {}
+    if dot is not None:
+        kw["dot"] = dot
+    if scal is not None:
+        kw["scal"] = scal
+    if axpy is not None:
+        kw["axpy"] = axpy
+    if newcopy is not None:
+        kw["copy"] = newcopy
+    return VecOps(**kw)
+
+
+DEFAULT_VECOPS = VecOps()
+
+
+class _Lanes:
+    """How a solve keeps the elements of a dense space: as a batch of
+    one, (1, k) tensors of `dtype` on `device`; the user's callables see
+    and return one instance's (k,) vectors."""
+
+    def __init__(self, dtype, device):
+        self.dtype, self.device = dtype, device
+
+    def to_user(self, u):
+        return u[0]
+
+    def from_user(self, w):
+        return torch.as_tensor(w, dtype=self.dtype,
+                               device=self.device).reshape(-1)[None]
+
+
+class _AsGiven:
+    """A custom vector space: the solve keeps the user's elements as they
+    are."""
+
+    @staticmethod
+    def to_user(u):
+        return u
+
+    @staticmethod
+    def from_user(w):
+        return w
 
 
 def _refuse_solver(solver, routes):
@@ -165,29 +275,42 @@ def _matrix_ops(G, A, P):
     return gmv, amv, pmv
 
 
-def _instance_op(f):
-    """A user operator on one instance's vectors, f(v) or f(v, trans=True),
-    as an operator on a batch of one, (1, k) tensors."""
+def _instance_op(f, dom=None, cod=None):
+    """A user operator on one instance's elements, f(u) from dom to cod
+    and f(v, trans=True) back, as an operator on the solve's elements:
+    each space a _Lanes or _AsGiven, by default _Lanes of the argument's
+    dtype and device (a batch of one, (1, k) tensors)."""
     def op(v, trans=False):
-        out = f(v[0], trans=True) if trans else f(v[0])
-        return torch.as_tensor(out, dtype=v.dtype, device=v.device)[None]
+        src, dst = (cod, dom) if trans else (dom, cod)
+        if src is None or dst is None:
+            lanes = _Lanes(v.dtype, v.device)
+            src, dst = src or lanes, dst or lanes
+        u = src.to_user(v)
+        return dst.from_user(f(u, trans=True) if trans else f(u))
     return op
 
 
-def _instance_factor(kktsolver, dims):
+def _instance_factor(kktsolver, dims, xspace=None, yspace=None):
     """A user kktsolver(W) -> solve(bx, by, bz) on one instance as a KKT
     strategy over a batch of one: W reaches it in the JAX package's
-    layout (convert.scaling_instance), solve works on unbatched
-    vectors."""
+    layout (convert.scaling_instance).  Where the caller passes H and Df
+    (cpl's oracle: matrices or operators of one instance), the user's
+    kktsolver(W, H=H, Df=Df) gets them as they are.  solve works on
+    unbatched vectors: xspace and yspace carry bx, by and their results
+    between the solve and the user (default: _Lanes, lane 0 of a (1, k)
+    tensor; _AsGiven for a custom space)."""
     from ..convert import scaling_instance
 
     def factor(W, H=None, Df=None):
-        solve1 = kktsolver(scaling_instance(dims, W))
+        Wi = scaling_instance(dims, W)
+        solve1 = (kktsolver(Wi) if H is None and Df is None
+                  else kktsolver(Wi, H=H, Df=Df))
 
         def solve(bx, by, bz):
-            return tuple(
-                torch.as_tensor(u, dtype=bx.dtype, device=bx.device)[None]
-                for u in solve1(bx[0], by[0], bz[0]))
+            lanes = _Lanes(bz.dtype, bz.device)
+            xs, ys = xspace or lanes, yspace or lanes
+            ux, uy, uz = solve1(xs.to_user(bx), ys.to_user(by), bz[0])
+            return xs.from_user(ux), ys.from_user(uy), lanes.from_user(uz)
         return solve
     return factor
 
