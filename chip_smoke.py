@@ -5,8 +5,10 @@ on one GPU: the kernel entry point kvxopt_tpu_torch.ops.batched_cholesky
 orthant, on orthant + second-order cones + equality constraints, and on
 orthant + second-order + semidefinite cones; the batched cone-LP solve;
 the cone-program front ends (solvers.coneqp/qp/conelp/lp/socp/sdp)
-with numpy data and no device named; and the nonlinear front ends
-(solvers.cp/cpl/gp, cvxprog.oracle_from_function).
+with numpy data and no device named; the nonlinear front ends
+(solvers.cp/cpl/gp, cvxprog.oracle_from_function); and the sparse layer
+(cholmod's tile-supernodal factorization on the card, the tile and dense
+routes of a scenario batch, a sparse-KKT LP).
 
     python3 chip_smoke.py
 
@@ -87,10 +89,34 @@ Phases (any failure exits non-zero and prints no result):
      sync debug mode), the device's busy share (profiler) and K1-K4's
      launches (0: the f64 path); each call again on the CPU: same
      status, iterations within 1, x within 1e-6 (1+|x|), the primal
-     objective within 1e-7 relative.
-The CPU solves of phases 4, 6, 10, 11, 12 and 13 run in three worker
+     objective within 1e-7 relative;
+ 14. "sparse", on stiffness_standin (a seeded stand-in for bcsstk13:
+     n=2003, 42,943 stored lower nonzeros, a 9-point grid with 3 dof per
+     node topped up with random couplings in a band, cfg_bcsstk's
+     diagonal dominance): (a) cholmod through its public API with
+     options['device'] "auto" (the card): symbolic once (AMD), numeric
+     (the factor's tensors on the card; a warm median of 3
+     refactorizations), solve: residual below 1e-8, P A P' = L L' to
+     1e-10 relative, every sys code 0-8 within 1e-8 relative of the host
+     LDL' (options['device'] False), the same for a Hermitian case with
+     n=300; NT against T(T+1)/2 and one factor's kernel launches; the
+     host LDL' refactorization and scipy splu factor + 2 solves beside
+     them; (b) cfg_bcsstk's scenario batch, 16 copies with per-matrix
+     jitter: the tile route (one batched TileCholesky factor in f64,
+     natural order, then 2 solves; residual below 1e-8) and the dense
+     route (ops.best_chol_factor_solve on K padded to 2048 in f32: K1 and
+     two K2; residual below 1e-4; the driven run's factor and solves
+     against their plain versions on the same inputs, K1 as in phase 1,
+     K2 to 1e-5 relative), ms per matrix, K1's and K2's launches;
+     (c) conelp on G = [S; I; -I] (n=2003, m=6009) with tile_kktsolver
+     (K = G'W^-2 G formed on the card, tiles_from_dense, factor, solve):
+     optimal, residuals below 1e-6, x within 1e-6 (1 + |x|) of the same
+     LP through the default chol2 on the card and of the same call on
+     CPU tensors (status, iterations within 1); warm median of 3, busy
+     share and host syncs per iteration.
+The CPU solves of phases 4, 6, 10, 11, 12, 13 and 14 run in three worker
 processes (spawned after the build, at lower priority, a few CPU threads
-each; phase 10's first, then the short ones of 11, 12 and 13, then
+each; phase 10's first, then the short ones of 11, 12, 13 and 14, then
 phases 4 and 6) beside the card's phases, and are compared with the
 card's solves at the end; each phase prints the seconds since the
 start.  Phases 11-13 run the f64 chol2, chol, qr and ldl strategies
@@ -100,9 +126,10 @@ Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
 and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
 synchronizing calls per IPM iteration.  The line before the card's line
 is the kernels line: per kernel its launches on the main path (phase 7;
-K4: phase 2), its error against the plain version, its time, the plain
-version's and one PyTorch call's (median of 20), and its bound from the
-bytes and flops of the same shape.  The last line is
+K4: phase 2) and in phase 14(b) (launches_phase14), its error against
+the plain version, its time, the plain version's and one PyTorch call's
+(median of 20), and its bound from the bytes and flops of the same
+shape.  The last line is
 {"ok": true, "device": {...}}; the line before it is
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
 """
@@ -127,6 +154,12 @@ SUB_SEED = 2000  # the stand-in for the ACTIVSg2000 submatrix
 M_AC, N_AC = 2000, 1000   # phase 13: analytic centering, A (m, n)
 N_GP, K_GP = 256, (8,) * 65  # phase 13: the seeded GP, 64 constraints
 N_OF = 64       # phase 13: oracle_from_function's variables
+# phase 14: bcsstk13's order and stored lower nonzeros, the band of the
+# stand-in's random couplings; the scenario batch, padded order and tile
+# size of bench_configs.cfg_bcsstk; the Hermitian case's order and count
+N_SP, NNZ_SP, BAND_SP = 2003, 42943, 60
+B_SP, NPAD_SP, TS_SP = 16, 2048, 128
+N_SPZ, NNZ_SPZ = 300, 4000
 T0 = time.perf_counter()
 POOL = None     # the worker processes of the CPU solves
 
@@ -401,6 +434,117 @@ def smooth_by_hand(Q, a, x, z):
     return f, Df, z[0] * torch.diag(a * a * ex) + 2.0 * z[1] * Q
 
 
+def stiffness_standin(seed=0, n=N_SP, nnz=NNZ_SP, band=BAND_SP,
+                      complex_=False):
+    """A seeded stand-in for bcsstk13, whose .mtx file is not in the repo:
+    (S, shift) with S a scipy CSC matrix of order n in full storage,
+    symmetric positive definite (Hermitian where complex_), with `nnz`
+    stored lower nonzeros, the diagonal included.  Its pattern: a 2-D
+    9-point grid of ceil(n/3) nodes with 3 dof per node, each coupled node
+    pair a dense 3x3 block, topped up with random couplings i - j in
+    [1, band].  Its values: M standard normal on that pattern (real and
+    imaginary parts where complex_, a real diagonal) and Hermitian, and
+    S = M + M^H + shift I with shift = 10 max_i sum_j |M_ij|, the diagonal
+    dominance bench_configs.cfg_bcsstk gives bcsstk13 (:227, :242)."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    nodes = -(-n // 3)
+    side = int(np.ceil(np.sqrt(nodes)))
+    a = np.arange(nodes)
+    r, c = np.divmod(a, side)
+    p, q = (v.ravel() for v in np.meshgrid(np.arange(3), np.arange(3),
+                                           indexing="ij"))
+    rows, cols = [], []
+    for dr, dc in ((0, 0), (0, 1), (1, -1), (1, 0), (1, 1)):
+        b = a + dr * side + dc
+        ok = (c + dc >= 0) & (c + dc < side) & (b < nodes)
+        i = 3 * b[ok, None] + p[None, :]
+        j = 3 * a[ok, None] + q[None, :]
+        keep = (i >= j) & (i < n)
+        rows.append(i[keep])
+        cols.append(j[keep])
+    i, j = np.concatenate(rows), np.concatenate(cols)
+    keys = set((i * n + j).tolist())
+    need = nnz - len(keys)
+    free = band * n - band * (band + 1) // 2 - int(
+        ((i - j >= 1) & (i - j <= band)).sum())
+    if not 0 <= need <= free:
+        raise ValueError(f"{nnz} lower entries: the grid has {len(keys)} "
+                         f"and the band {free} more")
+    extra = []
+    while need > 0:
+        ii = rng.integers(1, n, 4 * need)
+        jj = ii - rng.integers(1, band + 1, 4 * need)
+        for k in (ii * n + jj)[jj >= 0].tolist():
+            if k not in keys:
+                keys.add(k)
+                extra.append(k)
+                need -= 1
+                if need == 0:
+                    break
+    k = np.concatenate([i * n + j, np.array(extra, dtype=np.int64)])
+    i, j = np.divmod(k, n)
+    v = rng.standard_normal(len(k))
+    if complex_:
+        v = v + 1j * np.where(i > j, rng.standard_normal(len(k)), 0.0)
+    low = sp.csc_matrix((v, (i, j)), shape=(n, n))
+    M = low + sp.tril(low, -1).conj().T
+    shift = 10.0 * float(abs(M).sum(1).max())
+    S = (M + M.conj().T + shift * sp.eye(n)).tocsc()
+    S.sort_indices()
+    return S, shift
+
+
+def sparse_lp(S, seed=0):
+    """Phase 14(c)'s LP, as tests/test_sparse_kkt.py and
+    tests/test_tile_chol.py build theirs: G = [S; I; -I] (m = 3n), x0 =
+    0.1 randn, h = [S x0 + uniform(0.5, 1.5); 4; 4] so that x0 is strictly
+    feasible, and c = -G' z0 with z0 uniform(0.1, 1) so that the LP is
+    bounded -> (c, G, h) as numpy arrays."""
+    n = S.shape[0]
+    rng = np.random.default_rng(seed)
+    Sd = S.toarray()
+    G = np.vstack([Sd, np.eye(n), -np.eye(n)])
+    x0 = rng.standard_normal(n) * 0.1
+    h = np.concatenate([Sd @ x0 + rng.uniform(0.5, 1.5, n),
+                        np.full(n, 4.0), np.full(n, 4.0)])
+    return -G.T @ rng.uniform(0.1, 1.0, 3 * n), G, h
+
+
+def kkt_tiles(S, ts=TS_SP):
+    """The tile analysis of K = G' W^-2 G for G = [S; I; -I]: the pattern
+    of |S|'|S| + I, in S's own order."""
+    import scipy.sparse as sp
+    from kvxopt_tpu_torch.ops.tile_chol import (TileCholesky,
+                                                tile_pattern_from_sparse)
+    A = abs(sp.csc_matrix(S))
+    pattern = tile_pattern_from_sparse((A.T @ A + sp.eye(S.shape[0]))
+                                       .tocsc(), ts)
+    return TileCholesky(pattern, S.shape[0], ts)
+
+
+def tile_kktsolver(S, tile):
+    """kktsolver(W) of phase 14(c) for G = [S; I; -I], S a dense tensor:
+    K = S' D1^-2 S + D2^-2 + D3^-2 formed on S's device (d = W.d in three
+    parts), then tiles_from_dense, factor and solve of `tile`, whose
+    analysis was made once, outside the IPM loop."""
+    n = S.shape[0]
+
+    def kktsolver(W):
+        d = W.d
+        Ss = S / d[:n, None]
+        K = Ss.mT @ Ss
+        K.diagonal().add_(1.0 / d[n:2 * n] ** 2 + 1.0 / d[2 * n:] ** 2)
+        X = tile.factor(tile.tiles_from_dense(K))
+
+        def solve(bx, by, bz):
+            w = bz / d ** 2
+            ux = tile.solve(X, bx + S.mT @ w[:n] + w[n:2 * n] - w[2 * n:])
+            return ux, by, (torch.cat([S @ ux, ux, -ux]) - bz) / d ** 2
+        return solve
+    return kktsolver
+
+
 def nonlinear_calls(dev):
     """name -> a call of phase 13's solves as a user makes it: numpy data
     (config.default_device), the oracles' own data as tensors on
@@ -444,27 +588,35 @@ def phase0():
         print("  ptxas:", ln)
 
 
+def k1_agrees(label, K, L, Dinv):
+    """K1's (L, Dinv) of K against its plain version: max|L-Lref|/max|Lref|
+    < 1e-5 and max|Dinv*Lkk-I| < 1e-4 over the diagonal blocks -> the
+    largest |L-Lref|."""
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    n = K.shape[-1]
+    Lr, _ = cl.batched_cholesky_ls_ref(K)
+    torch.cuda.synchronize()
+    errL = float((L - Lr).abs().max())
+    relL = errL / float(Lr.abs().max())
+    eyeerr = 0.0
+    for kb in range(Dinv.shape[0]):
+        lo, hi = kb * 128, min(kb * 128 + 128, n)
+        Iblk = Dinv[kb, :, :hi - lo, :hi - lo] @ L[:, lo:hi, lo:hi]
+        eyeerr = max(eyeerr, float((Iblk - torch.eye(
+            hi - lo, device=K.device)).abs().max()))
+    print(f"{label}: max|L-Lref|/max|Lref|={relL:.3e} "
+          f"(tol 1e-5), max|Dinv*Lkk-I|={eyeerr:.3e} (tol 1e-4)")
+    check(relL < 1e-5 and eyeerr < 1e-4, f"{label}: disagrees with plain")
+    return errL
+
+
 def phase1(dev):
     from kvxopt_tpu_torch.ops import chol_ls as cl
     rows = {}
     for Bn, n in ((B, N), (3, 200), (B, P_EQ), (4, 100), (4, 20)):
         K = spd_batch(Bn, n, 1, dev)
         L, Dinv = cl.batched_cholesky_ls(K)
-        Lr, _ = cl.batched_cholesky_ls_ref(K)
-        torch.cuda.synchronize()
-        errL = float((L - Lr).abs().max())
-        relL = errL / float(Lr.abs().max())
-        nb = Dinv.shape[0]
-        eyeerr = 0.0
-        for kb in range(nb):
-            lo, hi = kb * 128, min(kb * 128 + 128, n)
-            Iblk = Dinv[kb, :, :hi - lo, :hi - lo] @ L[:, lo:hi, lo:hi]
-            eyeerr = max(eyeerr, float((Iblk - torch.eye(
-                hi - lo, device=dev)).abs().max()))
-        print(f"K1 B={Bn} n={n}: max|L-Lref|/max|Lref|={relL:.3e} "
-              f"(tol 1e-5), max|Dinv*Lkk-I|={eyeerr:.3e} (tol 1e-4)")
-        check(relL < 1e-5 and eyeerr < 1e-4, "K1 disagrees with plain")
-
+        errL = k1_agrees(f"K1 B={Bn} n={n}", K, L, Dinv)
         if (Bn, n) == (B, N):
             rows["K1"] = dict(
                 err=errL, ms=median_ms(lambda: cl.batched_cholesky_ls(K)),
@@ -585,8 +737,6 @@ def phase1_k3(dev):
     """K3 against its plain version at K3_CHECKS in both modes and with
     strided R, then times, TFLOP/s on the B n^2 k count and device times
     from one profiler window per mode at K3_TIMES."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from kvxopt_tpu_torch.ops import chol_ls as cl
     rng = np.random.default_rng(7)
     row = None
@@ -629,23 +779,21 @@ def phase1_k3(dev):
             if (Bn, n, k) != (B, N, N):
                 continue
             reps = 10
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+
+            def both():
                 for _ in range(reps):
                     cl.tri_solve_ls(L, Dinv, b, trans=trans)
                 for _ in range(reps):
                     cl.tri_solve_ls_ref(L, Dinv, b, trans=trans)
-                torch.cuda.synchronize()
-            kern = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
+
+            _, kern, _, _, why = trace(both)
             mine = [e for e in kern if "tri_kernel" in e.key]
             rest = [e for e in kern if "tri_kernel" not in e.key]
             dk = sum(e.self_device_time_total for e in mine) / reps / 1e3
             dp = sum(e.self_device_time_total for e in rest) / reps / 1e3
-            if dk == 0 or dp == 0:
+            if why or dk == 0 or dp == 0:
                 print(f"profile K3 B={Bn} n={n} k={k} {mode}: device time "
-                      "not measured (no device events)")
+                      f"not measured ({why or 'no device events'})")
                 continue
             print(f"profile K3 B={Bn} n={n} k={k} {mode}: device {dk:.4f} "
                   f"ms per call ({flop / dk / 1e9:.3f} TFLOP/s), plain "
@@ -662,24 +810,72 @@ K2_TIMES = ((B, N, 1), (B, N, P_EQ), (B, P_EQ, 1), (B, P_EQ, P_EQ),
 K2_KEYS = ("chol_solve_kernel",)
 
 
-def profile_split(fn, reps=20, flush=None):
-    """Device time per call by kernel name from one profiler window of
-    `reps` warm calls: {name: ms}, empty where the profiler saw no device
-    events.  `flush` runs before each call, inside the window."""
+# spin kernels that open each profiler trace: a trace that follows a large
+# one drops the records of its first few dozen kernels (the host's launch
+# calls stay whole)
+PRIME = 256
+
+
+def trace(fn, host_ops=False):
+    """fn() once under torch.profiler -> (wall s, fn's device events, the
+    host's calls {name: count}, fn's kernel launches, why).  The trace
+    holds the device's events and the host's CUDA runtime calls, and with
+    host_ops the host's operators too (they make the trace of a call that
+    runs many small operations slow to read).  It opens with PRIME spin
+    kernels and a sync, which what it returns leaves out.  why is None
+    where the trace holds as many of fn's kernels as the host launched,
+    else why no device time can be read from it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops
+                                      else [])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(PRIME):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    on_dev = [e for e in ev if e.device_type == DeviceType.CUDA
+              and "spin_kernel" not in e.key]
+    calls = {e.key: e.count for e in ev if e.device_type == DeviceType.CPU}
+    if calls.get("cudaDeviceSynchronize"):
+        calls["cudaDeviceSynchronize"] -= 1       # the opening sync
+    launches = sum(n for k, n in calls.items()
+                   if "Launch" in k and "Kernel" in k) - PRIME
+    kernels = sum(e.count for e in on_dev
+                  if not e.key.startswith(("Memcpy", "Memset")))
+    why = ("no device events" if not on_dev else
+           "no launch calls in the trace" if launches < 0 else
+           f"trace lost {launches - kernels} of {launches} kernels"
+           if kernels < launches else None)
+    return wall, on_dev, calls, launches, why
+
+
+def profile_split(fn, reps=20, flush=None):
+    """Device time per call by kernel name from one profiler trace of
+    `reps` warm calls: {name: ms}, empty (and the reason printed) where
+    the trace gives no device time.  `flush` runs before each call,
+    inside the trace."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(reps):
             if flush is not None:
                 flush()
             fn()
-        torch.cuda.synchronize()
+
+    _, kern, _, _, why = trace(calls)
+    if why:
+        print(f"profile: device time not measured ({why})")
+        return {}
     out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+    for e in kern:
+        if e.self_device_time_total > 0:
             out[e.key] = out.get(e.key, 0.0) + \
                 e.self_device_time_total / reps / 1e3
     return out
@@ -731,8 +927,7 @@ def k1_times(dev, shapes=K1_TIMES):
                        if any(s in k for s in K1_KEYS))
             row[name] = dict(ms=ms, dev=dev_ms, dev_kernels=kern,
                              split={k[:60]: v for k, v in split.items()})
-            dtxt = ("device not measured (no device events)"
-                    if dev_ms is None else
+            dtxt = ("device not measured" if dev_ms is None else
                     f"device {dev_ms:.4f} ms per call (" + ", ".join(
                         f"{k[:40]} {v:.4f}" for k, v in sorted(
                             split.items(), key=lambda kv: -kv[1])) + ")")
@@ -779,7 +974,7 @@ def k2_times(dev):
                     f"{warm[1]:.4f} warm, {cold[1]:.4f} cold, cholesky_solve "
                     f"{libd[0]:.4f}")
         else:
-            dtxt = "; device time not measured (no device events)"
+            dtxt = "; device time not measured"
         rows[(Bn, n, k)] = t
         print(f"time K2 B={Bn} n={n} k={k}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, cholesky_solve {t['lib']:.4f} ms "
@@ -979,8 +1174,6 @@ def breakdown(name, dims, args):
     """Each pass alone on all lanes, and the device's share of pass 1:
     K1-K3's and cuSOLVER's eigh and potrf device time and launches, and
     the host's synchronizing calls per IPM iteration."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from kvxopt_tpu_torch.parallel import batched_qp_solver
     from kvxopt_tpu_torch.solvers.coneprog import Options
     fast = batched_qp_solver(dims, "chol2_mixed_nofb", Options(ozaki=True))
@@ -996,18 +1189,11 @@ def breakdown(name, dims, args):
               f"{time.perf_counter() - t0:.4f} s, iterations "
               f"{out[4].tolist()}, status {out[5].tolist()}")
         iters = iters or int(out[4].max())
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fast(*args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    wall, kern, calls, _, why = trace(lambda: fast(*args), host_ops=True)
     busy = sum(e.self_device_time_total for e in kern) / 1e6
-    if busy == 0:
-        print(f"{name} profile pass 1: device time not measured (no device "
-              "events)")
+    if why or busy == 0:
+        print(f"{name} profile pass 1: device time not measured "
+              f"({why or 'no device events'})")
         return
     print(f"{name} profile pass 1 (profiler on): wall {wall:.4f} s, device "
           f"busy {busy:.4f} s ({100 * busy / wall:.1f}%), {len(kern)} "
@@ -1020,8 +1206,7 @@ def breakdown(name, dims, args):
         print(f"{name} profile pass 1: {kname} {t * 1e3:.2f} ms in "
               f"{sum(e.count for e in mine)} launches, "
               f"{100 * t / busy:.2f}% of device busy time")
-    host = {e.key: e.count for e in events
-            if e.device_type == DeviceType.CPU and e.key in HOST_KEYS}
+    host = {k: v for k, v in calls.items() if k in HOST_KEYS}
     print(f"{name} profile pass 1 host calls over {iters} IPM iterations: " +
           ", ".join(f"{k} {v} ({v / iters:.1f} per iteration)"
                     for k, v in sorted(host.items())))
@@ -1138,21 +1323,22 @@ def warm_times(fn, reps=3):
 
 
 def device_busy(fn):
-    """(wall s, device busy s) of one call under torch.profiler, tracing
-    the device alone (host operator events would make the trace of a
-    call that runs many small operations slow to read); busy is None
-    where the profiler saw no device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e6
-    return wall, (busy or None)
+    """One call under `trace` -> namespace: wall (s); busy, the device's
+    time (s), None where the trace gives none; launches and copies, the
+    host's CUDA runtime calls; busy_text and device_text, the busy share
+    and the device's time or why they are not measured."""
+    from types import SimpleNamespace
+    wall, on_dev, calls, launches, why = trace(fn)
+    busy = None if why else sum(e.self_device_time_total
+                                for e in on_dev) / 1e6
+    copies = sum(n for k, n in calls.items()
+                 if k.startswith(("cudaMemcpy", "cudaMemset")))
+    return SimpleNamespace(
+        wall=wall, busy=busy, launches=launches, copies=copies, why=why,
+        busy_text=f"device busy not measured ({why})" if why else
+        f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%)",
+        device_text=f"device time not measured ({why})" if why else
+        f"device {1e3 * busy:.4f} ms")
 
 
 def count_syncs(fn):
@@ -1228,10 +1414,9 @@ def lp_batch(dev):
     print(f"{name} wall time: median {np.median(ts):.4f} s, min "
           f"{min(ts):.4f}, max {max(ts):.4f} over 3 warm batch solves "
           f"(numpy data in, the host-to-card copy included)")
-    wall, busy = device_busy(lambda: solve(c, G, h))
-    print(f"{name} profile (profiler on): wall {wall:.4f} s, " + (
-        "device busy not measured (no device events)" if busy is None else
-        f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%)"))
+    pf = device_busy(lambda: solve(c, G, h))
+    print(f"{name} profile (profiler on): wall {pf.wall:.4f} s, "
+          f"{pf.busy_text}")
     return x, it, status
 
 
@@ -1397,7 +1582,7 @@ def nonlinear(dev):
         on_card(f"nonlinear {name}", *(sol[k] for k in
                                        ("x", "y", "snl", "sl", "znl", "zl")))
         ts = warm_times(fn)
-        wall, busy = device_busy(fn)
+        pf = device_busy(fn)
         syncs = count_syncs(fn)
         it = max(1, sol["iterations"])
         print(f"nonlinear {name}: status {sol['status']}, iterations "
@@ -1406,11 +1591,9 @@ def nonlinear(dev):
               f"{1e3 * np.median(ts):.2f} ms (min {1e3 * min(ts):.2f}, max "
               f"{1e3 * max(ts):.2f}, 3 calls), kernel launches {launches}",
               flush=True)
-        print(f"nonlinear {name} profile (profiler on): wall {wall:.4f} s, " +
-              ("device busy not measured (no device events)" if busy is None
-               else f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%)") +
-              f"; host syncs {syncs} in one call, {syncs / it:.1f} per "
-              "iteration")
+        print(f"nonlinear {name} profile (profiler on): wall {pf.wall:.4f} "
+              f"s, {pf.busy_text}; host syncs {syncs} in one call, "
+              f"{syncs / it:.1f} per iteration")
         check(sol["status"] == "optimal",
               f"nonlinear {name}: status {sol['status']}")
         check(not any(launches.values()),
@@ -1523,6 +1706,307 @@ def nonlinear_compare(pending, gpu):
               dp <= 1e-7, f"nonlinear {name}: differs from the CPU")
 
 
+def sparse_rhs(n, complex_=False, seed=5):
+    rng = np.random.default_rng(seed)
+    b = rng.standard_normal((n, 2))
+    return b + 1j * rng.standard_normal((n, 2)) if complex_ else b
+
+
+def cholmod_sys(F, b):
+    """solve(F, B, sys) for sys 0-8 on copies of b -> list of numpy."""
+    from kvxopt_tpu_torch import cholmod, matrix
+    out = []
+    for s in range(9):
+        B = matrix(b.copy())
+        cholmod.solve(F, B, sys=s)
+        out.append(np.asarray(B))
+    return out
+
+
+def cholmod_card(name, S, dev):
+    """Phase 14(a) on one matrix: cholmod.symbolic once, numeric (the
+    first call and a warm median of 3 refactorizations), solve; the
+    factor's tensors on the card, the solve's relative residual below
+    1e-8, P A P' = L L^H to 1e-10 relative -> (sys 0-8 outputs, times)."""
+    import scipy.sparse as sp
+    from kvxopt_tpu_torch import cholmod, matrix, spmatrix
+    n = S.shape[0]
+    As = spmatrix._from_csc(S)
+    b = sparse_rhs(n, np.iscomplexobj(S.data))
+    F = cholmod.symbolic(As)
+    t0 = time.perf_counter()
+    cholmod.numeric(As, F)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    check(F._device and F._X.device.type == "cuda",
+          f"sparse {name}: the tile factor is not on the card")
+    t = F._tile
+    refac = warm_times(lambda: cholmod.numeric(As, F))
+    solve = warm_times(lambda: cholmod.solve(F, matrix(b.copy())))
+    X = torch.from_numpy(t.tiles_from_csc(sp.tril(S[F.perm][:, F.perm])
+                                          .tocsc())).to(dev)
+    pf = device_busy(lambda: t.factor_ex(X))
+    outs = cholmod_sys(F, b)
+    x = outs[0]
+    res = np.linalg.norm(S @ x - b) / np.linalg.norm(b)
+    L = np.asarray(cholmod.getfactor(F))
+    PAP = S.toarray()[F.perm][:, F.perm]
+    ferr = np.abs(L @ L.conj().T - PAP).max() / np.abs(PAP).max()
+    print(f"sparse {name} n={n} lower nnz {sp.tril(S).nnz} dtype "
+          f"{S.dtype}: tiles NT={t.NT} of T(T+1)/2={t.T * (t.T + 1) // 2} "
+          f"(T={t.T}, ts={t.ts}, AMD order), first numeric {1e3 * first:.2f}"
+          f" ms, refactorization on the card {1e3 * np.median(refac):.4f} ms"
+          f" (min {1e3 * min(refac):.4f}, max {1e3 * max(refac):.4f}, 3 "
+          f"warm), solve (2 rhs) {1e3 * np.median(solve):.4f} ms; one "
+          f"factor_ex: {pf.launches} kernel launches, {pf.copies} copies, "
+          f"{pf.device_text}; residual {res:.3e} (tol 1e-8), "
+          f"|PAP' - LL^H|/|PAP| "
+          f"{ferr:.3e} (tol 1e-10)", flush=True)
+    check(res < 1e-8, f"sparse {name}: solve residual too large")
+    check(ferr < 1e-10, f"sparse {name}: P A P' != L L^H")
+    return outs, dict(refac=np.median(refac), solve=np.median(solve),
+                      launches=pf.launches)
+
+
+def scenario_batch(S, shift, dev, Bn=B_SP, npad=NPAD_SP, seed=0):
+    """cfg_bcsstk's scenario batch (bench_configs.py:239-245) on the
+    stand-in, made on the card: K = S padded to npad with shift on the pad
+    diagonal, plus uniform(0, 1e-3) I per matrix; b standard normal ->
+    (K (B, npad, npad), b (B, npad)), f64."""
+    rng = np.random.default_rng(seed)
+    n = S.shape[0]
+    K = torch.zeros((npad, npad), dtype=torch.float64, device=dev)
+    K[:n, :n] = torch.from_numpy(S.toarray()).to(dev)
+    K.diagonal()[n:] = shift
+    jit = torch.from_numpy(rng.uniform(0, 1e-3, Bn)).to(dev)
+    Ks = K + jit[:, None, None] * torch.eye(npad, dtype=K.dtype, device=dev)
+    return Ks, torch.from_numpy(rng.standard_normal((Bn, npad))).to(dev)
+
+
+def rel_res(K, x, b):
+    """max over the batch of |K x - b| / |b|, in f64."""
+    r = torch.einsum("bij,bj->bi", K, x.double()) - b.double()
+    return float((r.norm(dim=-1) / b.double().norm(dim=-1)).max())
+
+
+def scenario_routes(S, shift, dev):
+    """Phase 14(b): the tile route (one batched TileCholesky factor of the
+    16 matrices in f64, natural order, then 2 solves) and cfg_bcsstk's
+    dense route (ops.best_chol_factor_solve on K padded to 2048 in f32:
+    K1, then K2 twice), with residuals and ms per matrix; K1's and K2's
+    launches counted over one driven run of the dense route, whose factor
+    and solves are then held against their plain versions on the same
+    inputs (K1 as in phase 1; K2 to 1e-5 relative)."""
+    import scipy.sparse as sp
+    from kvxopt_tpu_torch.ops import best_chol_factor_solve, chol_ls as cl
+    from kvxopt_tpu_torch.ops.tile_chol import (TileCholesky,
+                                                tile_pattern_from_sparse)
+    n = S.shape[0]
+    Ks, bs = scenario_batch(S, shift, dev)
+    Bn, npad = Ks.shape[:2]
+    tile = TileCholesky(tile_pattern_from_sparse(sp.csc_matrix(S), TS_SP),
+                        n, TS_SP)
+    X = tile.tiles_from_dense(Ks[:, :n, :n])
+    check(X.shape == (Bn, tile.NT, TS_SP, TS_SP) and X.is_cuda,
+          "sparse scenarios: tiles not (B, NT, 128, 128) on the card")
+
+    def tile_route():
+        L = tile.factor(X)
+        y = tile.solve(L, bs[:, :n])
+        return y, tile.solve(L, y)
+
+    K32, b32 = Ks.float(), bs.float()
+
+    def dense_route():
+        f, solve = best_chol_factor_solve(K32)
+        y = solve(f, b32)
+        return f, y, solve(f, y)
+
+    y, x = tile_route()
+    rt = max(rel_res(Ks[:, :n, :n], y, bs[:, :n]),
+             rel_res(Ks[:, :n, :n], x, y))
+    torch.cuda.synchronize()
+    cl.reset_launches()
+    f, y, x = dense_route()
+    torch.cuda.synchronize()
+    launches = dict(cl.LAUNCHES)
+    check(launches["K1"] >= 1 and launches["K2"] >= 2,
+          "sparse scenarios: K1 or K2 did not run on the dense route")
+    L, Dinv = f
+    k1_agrees(f"sparse scenarios K1 B={Bn} n={npad}", K32, L, Dinv)
+    for r, out in ((b32, y), (y, x)):
+        xr = cl.chol_solve_ls_ref(L, Dinv, r)
+        rel = float((out - xr).abs().max() / xr.abs().max())
+        print(f"sparse scenarios K2 B={Bn} n={npad} k=1: "
+              f"max|x-xref|/max|xref|={rel:.3e} (tol 1e-5)")
+        check(rel < 1e-5, "sparse scenarios: K2 disagrees with plain")
+    rd = max(rel_res(Ks, y, bs), rel_res(Ks, x, y))
+    tt, td = warm_times(tile_route), warm_times(dense_route)
+    pf = device_busy(tile_route)
+    print(f"sparse scenarios B={Bn}: tile route f64 natural order NT="
+          f"{tile.NT} of {tile.T * (tile.T + 1) // 2}, factor + 2 solves "
+          f"{1e3 * np.median(tt) / Bn:.4f} ms per matrix (median of 3 "
+          f"warm batches; {pf.launches} kernel launches, {pf.copies} copies,"
+          f" {pf.device_text} per batch), residual {rt:.3e} (tol 1e-8); "
+          f"dense route "
+          f"f32 n={npad} (K1 + 2 K2) {1e3 * np.median(td) / Bn:.4f} ms "
+          f"per matrix, residual {rd:.3e} (tol 1e-4), launches in one run "
+          f"{launches}", flush=True)
+    check(rt < 1e-8, "sparse scenarios: tile route residual too large")
+    check(rd < 1e-4, "sparse scenarios: dense route residual too large")
+    return launches
+
+
+def sparse_lp_card(S, dev):
+    """Phase 14(c): conelp with tile_kktsolver on the card (the analysis
+    once, outside the loop) against the same LP through conelp's default
+    chol2 on the card: optimal, residuals below 1e-6, x within 1e-6
+    (1 + |x|); warm median of 3, iterations, busy share, host syncs per
+    iteration -> (x, iterations, status)."""
+    from kvxopt_tpu_torch import solvers
+    n = S.shape[0]
+    c, G, h = (torch.from_numpy(a).to(dev) for a in sparse_lp(S))
+    dims = {"l": 3 * n}
+    tile = kkt_tiles(S)
+    kkt = tile_kktsolver(G[:n], tile)
+
+    def run():
+        return solvers.conelp(c, G, h, dims, kktsolver=kkt)
+
+    def ref():
+        return solvers.conelp(c, G, h, dims)
+
+    sol, chol2 = run(), ref()
+    on_card("sparse lp", sol["x"], sol["z"])
+    ts, tr = warm_times(run), warm_times(ref)
+    pf = device_busy(run)
+    syncs = count_syncs(run)
+    it = max(1, sol["iterations"])
+    x, s, z = (sol[k].cpu().numpy() for k in ("x", "s", "z"))
+    xr = chol2["x"].cpu().numpy()
+    cn, Gn, hn = (a.cpu().numpy() for a in (c, G, h))
+    rd = np.linalg.norm(Gn.T @ z + cn) / (1 + np.linalg.norm(cn))
+    rp = np.linalg.norm(Gn @ x + s - hn) / (1 + np.linalg.norm(hn))
+    dx = np.linalg.norm(x - xr) / (1 + np.linalg.norm(xr))
+    print(f"sparse lp n={n} m={3 * n}, K tiles NT={tile.NT} of "
+          f"{tile.T * (tile.T + 1) // 2}: status {sol['status']}, iterations "
+          f"{sol['iterations']}, warm median {1e3 * np.median(ts):.2f} ms "
+          f"(min {1e3 * min(ts):.2f}, max {1e3 * max(ts):.2f}, 3 calls); "
+          f"chol2 {chol2['status']}, {chol2['iterations']} iterations, "
+          f"{1e3 * np.median(tr):.2f} ms; residuals G'z+c {rd:.3e}, "
+          f"Gx+s-h {rp:.3e} (tol 1e-6); |x - x_chol2|/(1+|x_chol2|) "
+          f"{dx:.3e} (tol 1e-6)", flush=True)
+    print(f"sparse lp profile (profiler on): wall {pf.wall:.4f} s, "
+          f"{pf.busy_text}; host syncs {syncs} in one call, "
+          f"{syncs / it:.1f} per iteration", flush=True)
+    check(sol["status"] == chol2["status"] == "optimal",
+          "sparse lp: not optimal")
+    check(rd < 1e-6 and rp < 1e-6, "sparse lp: residuals too large")
+    check(dx <= 1e-6, "sparse lp: x differs from chol2's")
+    return x, sol["iterations"], sol["status"]
+
+
+def sparse(dev):
+    """Phase 14, "sparse": (a) cholmod's tile path on the card, the
+    stand-in and a small Hermitian case; (b) the scenario batch of
+    cfg_bcsstk on the tile and the dense routes; (c) the sparse-KKT LP.
+    Returns (the card's results for sparse_compare, K1/K2 launches of
+    (b))."""
+    from kvxopt_tpu_torch import cholmod, native
+    print(f"sparse: host compiler {sh(['which', 'g++'])}: "
+          f"{sh(['g++', '--version']).splitlines()[0]}", flush=True)
+    old = dict(cholmod.options)
+    cholmod.options.update({"supernodal": 2, "device": "auto",
+                            "tilesize": TS_SP})
+    try:
+        S, shift = stiffness_standin(0)
+        gpu = {"d": cholmod_card("cholmod stand-in", S, dev)}
+        secs = native.BUILD_INFO["seconds"]
+        print(f"sparse: native host library {native.BUILD_INFO['path']}, " +
+              ("built by a worker process of this run" if secs is None
+               else f"built in {secs:.2f} s"), flush=True)
+        Z, _ = stiffness_standin(1, N_SPZ, NNZ_SPZ, complex_=True)
+        gpu["z"] = cholmod_card("cholmod hermitian", Z, dev)
+    finally:
+        cholmod.options.clear()
+        cholmod.options.update(old)
+    stamp("phase 14(a)")
+    launches = scenario_routes(S, shift, dev)
+    stamp("phase 14(b)")
+    gpu["lp"] = sparse_lp_card(S, dev)
+    return gpu, launches
+
+
+def sparse_cpu():
+    """Phase 14's CPU side: cholmod's host LDL' (options['device'] False)
+    on the stand-in (sys 0-8, the refactorization's median of 3) and on
+    the Hermitian case, scipy splu factor + 2 solves on the stand-in, and
+    phase 14(c)'s LP with tile_kktsolver on CPU tensors."""
+    import scipy.sparse.linalg as spla
+    from kvxopt_tpu_torch import cholmod, solvers, spmatrix
+    out = {}
+    cholmod.options.update({"supernodal": 2, "device": False})
+    S, _ = stiffness_standin(0)
+    for key, M in (("d", S), ("z", stiffness_standin(1, N_SPZ, NNZ_SPZ,
+                                                      complex_=True)[0])):
+        As = spmatrix._from_csc(M)
+        F = cholmod.symbolic(As)
+        cholmod.numeric(As, F)
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cholmod.numeric(As, F)
+            ts.append(time.perf_counter() - t0)
+        out[key] = (cholmod_sys(F, sparse_rhs(M.shape[0],
+                                              np.iscomplexobj(M.data))),
+                    float(np.median(ts)))
+    b = sparse_rhs(S.shape[0])[:, 0]
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        lu = spla.splu(S.tocsc())
+        lu.solve(lu.solve(b))
+        ts.append(time.perf_counter() - t0)
+    out["splu"] = float(np.median(ts))
+    n = S.shape[0]
+    c, G, h = (torch.from_numpy(a) for a in sparse_lp(S))
+    t0 = time.perf_counter()
+    sol = solvers.conelp(c, G, h, {"l": 3 * n}, kktsolver=tile_kktsolver(
+        G[:n], kkt_tiles(S)))
+    out["lp"] = (sol["x"].numpy(), sol["iterations"], sol["status"],
+                 time.perf_counter() - t0)
+    return out
+
+
+def sparse_compare(pending, gpu):
+    """Phase 14 against the CPU: every sys code 0-8 of the tile path on
+    the card within 1e-8 relative of the host LDL'; the LP's status, its
+    iterations within 1 and x within 1e-6 (1 + |x|)."""
+    try:
+        cpu = pending.get()
+    except Exception as e:  # noqa: BLE001  (the worker's error, reported)
+        fail(f"sparse: the CPU side raised {e!r}")
+    for key in ("d", "z"):
+        outs, stats = gpu[key]
+        host, refac = cpu[key]
+        err = max(np.abs(g - h).max() / np.abs(h).max()
+                  for g, h in zip(outs, host))
+        print(f"sparse cholmod {key}: sys 0-8, card tile path against host "
+              f"LDL' max relative {err:.3e} (tol 1e-8); refactorization "
+              f"card {1e3 * stats['refac']:.4f} ms, host LDL' "
+              f"{1e3 * refac:.4f} ms" + (
+                  f", scipy splu factor + 2 solves {1e3 * cpu['splu']:.4f} ms"
+                  if key == "d" else "") + " (CPU numbers from the worker, "
+              "beside the card's phases)", flush=True)
+        check(err < 1e-8, f"sparse cholmod {key}: differs from host LDL'")
+    (xg, itg, stg), (x, it, st, secs) = gpu["lp"], cpu["lp"]
+    dx = np.linalg.norm(xg - x) / (1 + np.linalg.norm(x))
+    print(f"sparse lp cpu: {secs:.2f} s, status {st}, iterations {it} (card "
+          f"{itg}), |x_gpu-x_cpu|/(1+|x_cpu|) {dx:.3e} (tol 1e-6)", flush=True)
+    check(st == stg and abs(it - itg) <= 1 and dx <= 1e-6,
+          "sparse lp: differs from the CPU")
+
+
 def cpu_solve(name, threads):
     """In a worker process: the phase's problems on CPU tensors, the
     kernels' plain versions -> (x, iterations, status, seconds); x over
@@ -1531,6 +2015,8 @@ def cpu_solve(name, threads):
     torch.set_num_threads(threads)
     if name == "nonlinear":
         return nonlinear_cpu()
+    if name == "sparse":
+        return sparse_cpu()
     from kvxopt_tpu_torch import ConeDims, solvers
     from kvxopt_tpu_torch.convert import (lp_state_to_numpy,
                                           problem_to_torch, state_to_numpy)
@@ -1559,7 +2045,7 @@ def cpu_solve(name, threads):
 
 
 def start_cpu_solves(names, workers=3):
-    """The CPU solves of phases 4, 6, 10, 11, 12 and 13 in `workers`
+    """The CPU solves of phases 4, 6, 10, 11, 12, 13 and 14 in `workers`
     spawned processes (no CUDA state is forked), sharing the cores the
     card's phases leave; they start in the order of `names`."""
     global POOL
@@ -1595,7 +2081,8 @@ def main():
     # the longest CPU solve first, then the two short ones of phases 11
     # and 12, so that the other two start once those are done
     pending = start_cpu_solves(("slice l+q+s", "lp batch", "conelp l+q+s",
-                                "nonlinear", "slice", "slice l+q+eq"))
+                                "nonlinear", "sparse", "slice",
+                                "slice l+q+eq"))
     rows = phase1(dev)
     k1_times(dev)
     stamp("phase 1")
@@ -1626,14 +2113,17 @@ def main():
     stamp("phase 12")
     gpu_nl = nonlinear(dev)
     stamp("phase 13")
+    gpu_sp, sparse_launches = sparse(dev)
+    stamp("phase 14")
     for name, g in (("slice", gpu), ("slice l+q+eq", gpu_eq),
                     ("slice l+q+s", gpu_s), ("lp batch", gpu_lp),
                     ("conelp l+q+s", gpu_lqs)):
         cpu_phase(name, pending[name], g)
     nonlinear_compare(pending["nonlinear"], gpu_nl)
+    sparse_compare(pending["sparse"], gpu_sp)
     POOL.close()
     POOL.join()
-    stamp("phases 4, 6, 10 and the CPU solves of 11, 12 and 13")
+    stamp("phases 4, 6, 10 and the CPU sides of 11, 12, 13 and 14")
 
     launches["K4"] = k4_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",
@@ -1650,7 +2140,8 @@ def main():
          "replaces": replaces[k], "launches": launches[k],
          "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
          "plain_ms": rows[k]["plain"], "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": rows[k]["lib"]}
+         "bound_by": bounds[k][1], "library_ms": rows[k]["lib"],
+         "launches_phase14": sparse_launches[k]}
         for k in replaces]}))
     print(sh(["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]))

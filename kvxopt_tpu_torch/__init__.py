@@ -2,9 +2,75 @@
 
 Module paths and function names mirror kvxopt_tpu.  The package imports
 torch and never jax; its CUDA kernels (csrc/) are built for Hopper at
-first use (ops/_build.py).
+first use (ops/_build.py), and its native host library (native/host.cpp:
+orderings, sparse LDL' and LU) with g++ at first use (native/__init__.py).
+
+The facade is kvxopt_tpu's (reference src/python/__init__.py):
+matrix/spmatrix/sparse/spdiag, the elementwise math and min/max/mul/div.
+The random generators (normal, uniform, setseed, getseed) come with the
+port of gsl.py.
 """
+
+import numpy as _np
 
 from . import config  # noqa: F401  (turns TF32 off first)
 from . import cones, kkt, ops, parallel, solvers  # noqa: F401
 from .cones import ConeDims  # noqa: F401
+from .base import (  # noqa: F401
+    matrix, spmatrix, sparse, spdiag, fromfile,
+    exp, log, sqrt, sin, cos, tan, asin, acos, atan, sinh, cosh, tanh,
+    conj, emul, ediv, emin, emax, norm,
+    gemv, gemm, syrk, symv, axpy)
+from . import printing  # noqa: F401
+
+_pymin, _pymax = min, max
+
+
+def min(*args):
+    """Elementwise min of matrices/scalars; with a single matrix argument,
+    the minimum element (reference __init__.py:203-302)."""
+    if len(args) == 1:
+        a = args[0]
+        if isinstance(a, (matrix, spmatrix)):
+            return float(_np.asarray(a).min())
+        return _pymin(a)
+    out = args[0]
+    for b in args[1:]:
+        out = emin(out, b)
+    return out
+
+
+def max(*args):
+    """Elementwise max (see min)."""
+    if len(args) == 1:
+        a = args[0]
+        if isinstance(a, (matrix, spmatrix)):
+            return float(_np.asarray(a).max())
+        return _pymax(a)
+    out = args[0]
+    for b in args[1:]:
+        out = emax(out, b)
+    return out
+
+
+def mul(*args):
+    """Elementwise product of the arguments (reference __init__.py mul)."""
+    out = args[0]
+    for b in args[1:]:
+        out = emul(out, b)
+    return out
+
+
+def div(*args):
+    """Elementwise division (reference __init__.py div)."""
+    out = args[0]
+    for b in args[1:]:
+        out = ediv(out, b)
+    return out
+
+
+__all__ = [
+    "matrix", "spmatrix", "sparse", "spdiag", "exp", "log", "sqrt", "sin",
+    "cos", "tan", "mul", "div", "min", "max", "norm", "ConeDims",
+    "printing", "solvers",
+]
