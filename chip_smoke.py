@@ -6,9 +6,11 @@ orthant, on orthant + second-order cones + equality constraints, and on
 orthant + second-order + semidefinite cones; the batched cone-LP solve;
 the cone-program front ends (solvers.coneqp/qp/conelp/lp/socp/sdp)
 with numpy data and no device named; the nonlinear front ends
-(solvers.cp/cpl/gp, cvxprog.oracle_from_function); and the sparse layer
+(solvers.cp/cpl/gp, cvxprog.oracle_from_function); the sparse layer
 (cholmod's tile-supernodal factorization on the card, the tile and dense
-routes of a scenario batch, a sparse-KKT LP).
+routes of a scenario batch, a sparse-KKT LP); and the modeling layer
+(op.solve on PWL models, MPS I/O) with the solver= routes (osqp's ADMM
+on the card, glpk, dsdp).
 
     python3 chip_smoke.py
 
@@ -113,15 +115,39 @@ Phases (any failure exits non-zero and prints no result):
      optimal, residuals below 1e-6, x within 1e-6 (1 + |x|) of the same
      LP through the default chol2 on the card and of the same call on
      CPU tensors (status, iterations within 1); warm median of 3, busy
-     share and host syncs per iteration.
-The CPU solves of phases 4, 6, 10, 11, 12, 13 and 14 run in three worker
+     share and host syncs per iteration;
+ 15. "modeling": (a) examples/normappr.py's three PWL problems and
+     examples/roblp.py's two at m=1000, n=250 (pwl_models, seeded numpy
+     data through matrix) through kvxopt_tpu_torch.modeling's op.solve()
+     on the card: optimal, z >= 0 and s'z below 1e-6 (1 + |pcost|);
+     per model the warm median of 3, _build_lp's host time, iterations,
+     host syncs per iteration and the device's busy share; each model on
+     the CPU (status, iterations within 1, every variable within
+     1e-7 (1 + |value|)) and with solver='glpk' (HiGHS; the objective
+     within 1e-6 relative); (b) roblp at m=200, n=50, its data at the
+     MPS writer's six digits (mps_exact), through tofile and fromfile,
+     solved on the card (the objective within 1e-8 relative), and an
+     integer-marker MPS through op.solve() to glpk.ilp (x = (5, 0.5)); (c) solvers.qp(solver='osqp') on osqp_problem (n=1000,
+     G 2000 x 1000, a budget row) on the card: status, ADMM iterations,
+     warm median of 3, ms per iteration, host syncs per call and the busy
+     share of a call cut to OSQP_PROFILED iterations; the same call on
+     the CPU (status, iterations within 2, x within 1e-6 relative) and,
+     where it ends optimal, the native qp (objective within 1e-4
+     relative); lp(solver='osqp') on (a)'s
+     max|Ax+b| LP beside the native lp; (d) dsdp.sdp and
+     solvers.sdp(solver='dsdp') on the userguide SDP
+     (examples/dsdp_dual_scaling.py) against the native sdp on the card:
+     objectives within 1e-6 relative, dsdp.sdp at its default gap
+     tolerance within that tolerance, 1e-5.
+The CPU solves of phases 4, 6, 10 and 11-15 run in three worker
 processes (spawned after the build, at lower priority, a few CPU threads
-each; phase 10's first, then the short ones of 11, 12, 13 and 14, then
-phases 4 and 6) beside the card's phases, and are compared with the
+each; phase 10's first, then the short ones of 11-15, then phases 4
+and 6) beside the card's phases, and are compared with the
 card's solves at the end; each phase prints the seconds since the
-start.  Phases 11-13 run the f64 chol2, chol, qr and ldl strategies
-(cuSOLVER and torch), which launch none of K1-K4; they print the counts,
-set to 0 before each solve.
+start.  Phases 11-13 and 15 run the f64 chol2, chol, qr and ldl
+strategies (cuSOLVER and torch) and the ADMM's torch operations, which
+launch none of K1-K4; they print the counts, set to 0 before each
+solve.
 Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
 and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
 synchronizing calls per IPM iteration.  The line before the card's line
@@ -134,6 +160,7 @@ shape.  The last line is
 `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`.
 """
 
+import contextlib
 import importlib.util
 import json
 import multiprocessing
@@ -154,6 +181,9 @@ SUB_SEED = 2000  # the stand-in for the ACTIVSg2000 submatrix
 M_AC, N_AC = 2000, 1000   # phase 13: analytic centering, A (m, n)
 N_GP, K_GP = 256, (8,) * 65  # phase 13: the seeded GP, 64 constraints
 N_OF = 64       # phase 13: oracle_from_function's variables
+M_PWL, N_PWL = 1000, 250  # phase 15(a): five times the examples' size
+N_OSQP, M_OSQP = 1000, 2000  # phase 15(c): the OSQP QP, G (m, n)
+OSQP_PROFILED = 200  # phase 15(c): ADMM iterations of the profiled call
 # phase 14: bcsstk13's order and stored lower nonzeros, the band of the
 # stand-in's random couplings; the scenario batch, padded order and tile
 # size of bench_configs.cfg_bcsstk; the Hermitian case's order and count
@@ -2007,6 +2037,347 @@ def sparse_compare(pending, gpu):
           "sparse lp: differs from the CPU")
 
 
+@contextlib.contextmanager
+def spy(module, name):
+    """Inside the block, module.name's calls go through and their results
+    are kept, in order, in the list the block gets."""
+    fn, seen = getattr(module, name), []
+
+    def wrapper(*args, **kwargs):
+        seen.append(fn(*args, **kwargs))
+        return seen[-1]
+    setattr(module, name, wrapper)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def solve_recorded(prob, **kwargs):
+    """prob.solve(**kwargs) as a user calls it -> the result dictionary of
+    the solvers.lp call it makes (op.solve keeps only the status)."""
+    from kvxopt_tpu_torch import solvers
+    with spy(solvers, "lp") as seen:
+        prob.solve(**kwargs)
+    return seen[0]
+
+
+def pwl_data(m=M_PWL, n=N_PWL, seed=0):
+    """Phase 15(a)'s seeded data: A (m, n) and b (m, 1) standard normal,
+    u (m, 1) uniform(0, 1), c (n, 1) standard normal, as
+    examples/normappr.py and roblp.py draw them with gsl."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((m, n)), rng.standard_normal((m, 1)),
+            rng.uniform(size=(m, 1)), rng.standard_normal((n, 1)))
+
+
+def mps_exact(a):
+    """a's entries as the MPS writer prints them (% 7.5E, six significant
+    digits), so that a file holds the problem exactly."""
+    return np.array([float("%.5E" % v) for v in a.ravel()]).reshape(a.shape)
+
+
+def pwl_models(m=M_PWL, n=N_PWL, seed=0, exact=False):
+    """name -> (op, its variables): examples/normappr.py's three problems
+    (max|Ax+b|, sum|Ax+b|, the dead-zone penalty) and examples/roblp.py's
+    two (A x + sum|x| <= u in PWL form and with the auxiliary y), built
+    through matrix from pwl_data (through mps_exact where exact)."""
+    from kvxopt_tpu_torch import matrix
+    from kvxopt_tpu_torch import modeling as md
+    An, bn, un, cn = (mps_exact(a) if exact else a
+                      for a in pwl_data(m, n, seed))
+    A, b, u, c = matrix(An), matrix(bn), matrix(un), matrix(cn)
+    out = {}
+    for name, f in (
+            ("normappr inf", lambda r: md.max(abs(r))),
+            ("normappr l1", lambda r: md.sum(abs(r))),
+            ("normappr deadzone", lambda r: md.sum(md.max(
+                0, abs(r) - 0.75, 2 * abs(r) - 2.25)))):
+        x = md.variable(n)
+        out[name] = (md.op(f(A * x + b)), [x])
+    x = md.variable(n)
+    out["roblp pwl"] = (md.op(md.dot(c, x), A * x + md.sum(abs(x)) <= u),
+                        [x])
+    x, y = md.variable(n), md.variable(n)
+    out["roblp aux"] = (md.op(md.dot(c, x), [A * x + md.sum(y) <= u,
+                                             -y <= x, x <= y]), [x, y])
+    return out
+
+
+def osqp_problem(n=N_OSQP, m=M_OSQP, seed=0):
+    """Phase 15(c)'s strongly convex QP with a budget row: P = F'F/n +
+    0.1 I with F (n, n) standard normal, q standard normal, G (m, n)
+    standard normal, h = G x0 + uniform(0.5, 1.5) with x0 = 1/n, and
+    A = 1', b = 1 (x0 is strictly feasible)."""
+    rng = np.random.default_rng(seed)
+    F = rng.standard_normal((n, n))
+    P = F.T @ F / n + 0.1 * np.eye(n)
+    q = rng.standard_normal(n)
+    G = rng.standard_normal((m, n))
+    h = G @ np.full(n, 1.0 / n) + rng.uniform(0.5, 1.5, m)
+    return P, q, G, h, np.ones((1, n)), np.ones(1)
+
+
+# tests/test_modeling.py's integer-marker MPS: x1 integer, x2 continuous;
+# the optimum is x = (5, 0.5)
+INT_MPS = """NAME          INTTEST
+ROWS
+ N  cost
+ L  R1
+COLUMNS
+    MARKER0  'MARKER'  'INTORG'
+    X1  cost  -1.0  R1  2.0
+    MARKER1  'MARKER'  'INTEND'
+    X2  cost  -1.0  R1  3.0
+RHS
+    R1  11.5
+BOUNDS
+ UP  BND  X1  10.0
+ UP  BND  X2  2.9
+ENDATA
+"""
+
+
+def scratch_dir():
+    """A temporary directory inside the checkout's ignored build folder."""
+    import tempfile
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "kvxopt_tpu_torch", "build")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=root)
+
+
+def modeling(dev):
+    """Phase 15, "modeling": (a) the PWL models of pwl_models through
+    op.solve() on the card; (b) an MPS round trip and an integer-marker
+    MPS through op.solve() to glpk.ilp; (c) qp(solver='osqp') on
+    osqp_problem and lp(solver='osqp') on (a)'s max|Ax+b| LP; (d) the
+    DSDP bridge on the userguide SDP.  Returns the card's results for
+    modeling_compare."""
+    from kvxopt_tpu_torch import dsdp, osqp, solvers
+    from kvxopt_tpu_torch import modeling as md
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    gpu = {}
+    for name, (prob, xs) in pwl_models().items():
+        torch.cuda.synchronize()
+        cl.reset_launches()
+        sol = solve_recorded(prob)
+        torch.cuda.synchronize()
+        launches = dict(cl.LAUNCHES)
+        on_card(f"modeling {name}", *(sol[k] for k in "xysz"))
+        check(sol["status"] == prob.status == "optimal",
+              f"modeling {name}: status {prob.status}")
+        check(not any(launches.values()),
+              f"modeling {name}: a kernel of K1-K4 ran on the f64 path")
+        values = [np.asarray(v.value).ravel() for v in xs]
+        objective = float(prob.objective.value()[0])
+        s, z = host(sol["s"]), host(sol["z"])
+        comp = float(s @ z) / (1 + abs(sol["primal objective"]))
+        t0 = time.perf_counter()
+        G = prob._build_lp()[2]
+        build = time.perf_counter() - t0
+        ts = warm_times(prob.solve)
+        pf = device_busy(prob.solve)
+        syncs = count_syncs(prob.solve)
+        it = max(1, sol["iterations"])
+        print(f"modeling {name} (m={M_PWL}, n={N_PWL}; canonical LP "
+              f"{G.shape[1]} variables, {G.shape[0]} inequalities): status "
+              f"{prob.status}, iterations {sol['iterations']}, objective "
+              f"{objective!r}, op.solve warm median "
+              f"{1e3 * np.median(ts):.2f} ms (min {1e3 * min(ts):.2f}, max "
+              f"{1e3 * max(ts):.2f}, 3 calls), _build_lp "
+              f"{1e3 * build:.2f} ms, kernel launches {launches}",
+              flush=True)
+        print(f"modeling {name} profile (profiler on): wall {pf.wall:.4f} "
+              f"s, {pf.busy_text}; host syncs {syncs} in one call, "
+              f"{syncs / it:.1f} per iteration; min z {z.min():.3e} (>= 0), "
+              f"s'z/(1+|pcost|) {comp:.3e} (tol 1e-6)", flush=True)
+        check(z.min() >= 0 and s.min() >= 0 and comp <= 1e-6,
+              f"modeling {name}: multipliers negative or complementarity "
+              "too large")
+        gpu[name] = (prob.status, sol["iterations"], values, objective)
+        stamp(f"phase 15(a) {name}")
+
+    # (b) an MPS round trip at the example's size, on data the file holds
+    # exactly, and integer markers
+    prob, _ = pwl_models(200, 50, exact=True)["roblp pwl"]
+    prob.solve()
+    check(prob.status == "optimal", "modeling mps: roblp not optimal")
+    obj = float(prob.objective.value()[0])
+    with scratch_dir() as d:
+        path = os.path.join(d, "roblp.mps")
+        prob.tofile(path)
+        size = os.path.getsize(path)
+        back = md.op()
+        back.fromfile(path)
+        back.solve()
+        path = os.path.join(d, "int.mps")
+        with open(path, "w") as f:
+            f.write(INT_MPS)
+        ilp = md.op()
+        ilp.fromfile(path)
+        ilp.solve()
+    obj2 = float(back.objective.value()[0])
+    xi = np.asarray(ilp.variables()[0].value).ravel()
+    print(f"modeling mps: roblp (m=200, n=50) tofile {size} bytes, fromfile "
+          f"and op.solve on the card: status {back.status}, objective "
+          f"{obj2!r} against {obj!r} ({abs(obj2 - obj) / abs(obj):.3e}, "
+          f"tol 1e-8); integer-marker MPS through glpk.ilp: status "
+          f"{ilp.status}, x {xi.tolist()} (expected [5.0, 0.5])", flush=True)
+    check(back.status == "optimal" and abs(obj2 - obj) <= 1e-8 * abs(obj),
+          "modeling mps: the read-back problem differs")
+    check(ilp.status == "optimal" and np.abs(xi - [5.0, 0.5]).max() <= 1e-6,
+          "modeling mps: the integer-marker problem's x")
+    stamp("phase 15(b)")
+
+    # (c) OSQP on the card
+    P, q, G, h, A, b = osqp_problem()
+
+    def qp_osqp(options=None):
+        return solvers.qp(P, q, G, h, A, b, solver="osqp", options=options)
+    cl.reset_launches()
+    with spy(osqp, "_admm_core") as seen:
+        sol = qp_osqp()
+    torch.cuda.synchronize()
+    it = int(seen[0][3])
+    check(seen[0][0].device.type == "cuda", "modeling osqp: not on the card")
+    check(not any(cl.LAUNCHES.values()), "modeling osqp: a kernel of K1-K4 "
+          "ran")
+    ts = warm_times(qp_osqp)
+    syncs = count_syncs(qp_osqp)
+    # the profiled call stops at OSQP_PROFILED iterations: a trace of the
+    # whole solve holds ~100k kernels and takes long to read
+    pf = device_busy(lambda: qp_osqp({"osqp": {"max_iter": OSQP_PROFILED}}))
+    wall = float(np.median(ts))
+    x = np.asarray(sol["x"]).ravel()
+    print(f"modeling osqp qp n={N_OSQP} m={M_OSQP}+1: status "
+          f"{sol['status']}, iterations {it}, primal objective "
+          f"{sol['primal objective']!r}, warm median {1e3 * wall:.2f} ms "
+          f"(min {1e3 * min(ts):.2f}, max {1e3 * max(ts):.2f}, 3 calls), "
+          f"{1e3 * wall / max(1, it):.4f} ms per iteration; host syncs "
+          f"{syncs} in one call (chunks of {osqp.CHUNK}); profile of "
+          f"{OSQP_PROFILED} iterations: wall {pf.wall:.4f} s, "
+          f"{pf.busy_text}", flush=True)
+    if sol["status"] == "optimal":
+        ref = solvers.qp(P, q, G, h, A, b)
+        d = abs(sol["primal objective"] - ref["primal objective"]) / abs(
+            ref["primal objective"])
+        print(f"modeling osqp qp: native qp status {ref['status']}, "
+              f"iterations {ref['iterations']}, objective "
+              f"{ref['primal objective']!r}; relative difference {d:.3e} "
+              "(tol 1e-4)", flush=True)
+        check(ref["status"] == "optimal" and d <= 1e-4,
+              "modeling osqp: objective differs from the native qp")
+    gpu["osqp"] = (sol["status"], it, x)
+    cvec, _, Gl, hl = pwl_models()["normappr inf"][0]._build_lp()[:4]
+    with spy(osqp, "_admm_core") as seen:
+        lo = solvers.lp(cvec, Gl, hl, solver="osqp")
+    nat = solvers.lp(cvec, Gl, hl)
+    print(f"modeling osqp lp (normappr inf, {Gl.shape[1]} variables, "
+          f"{Gl.shape[0]} inequalities): status {lo['status']}, iterations "
+          f"{int(seen[0][3])}, objective {lo.get('primal objective')!r}; "
+          f"native lp status {nat['status']}, iterations "
+          f"{nat['iterations']}, objective {nat['primal objective']!r}",
+          flush=True)
+    stamp("phase 15(c)")
+
+    # (d) the DSDP bridge against the native sdp on the card: dsdp.sdp at
+    # its default gap tolerance (1e-5) and at the 1e-8 that
+    # sdp(solver='dsdp') sets, and the route itself
+    c, Gs, hs = userguide_data()[2]
+    nat = solvers.sdp(c, Gs=Gs, hs=hs)
+    on_card("modeling sdp", nat["x"])
+    pn = nat["primal objective"]
+    print(f"modeling dsdp: native sdp on the card {nat['status']}, "
+          f"objective {pn!r}", flush=True)
+    check(nat["status"] == "optimal", "modeling dsdp: native sdp status")
+    for label, tol, call in (
+            ("dsdp.sdp", 1e-5, lambda: dsdp.sdp(c, None, None, Gs, hs)),
+            ("dsdp.sdp DSDP_GapTolerance 1e-8", 1e-6, lambda: dsdp.sdp(
+                c, None, None, Gs, hs, options={"DSDP_GapTolerance": 1e-8})),
+            ("sdp(solver='dsdp')", 1e-6, lambda: solvers.sdp(
+                c, Gs=Gs, hs=hs, solver="dsdp"))):
+        out = call()
+        if isinstance(out, dict):
+            status, obj = out["status"], out["primal objective"]
+        else:
+            status, obj = out[0], float(c @ np.asarray(out[1]).ravel())
+        err = abs(obj - pn) / abs(pn)
+        print(f"modeling dsdp: {label} {status}, objective {obj!r}, "
+              f"relative to the native sdp {err:.3e} (tol {tol:g})",
+              flush=True)
+        check(status in ("optimal", "DSDP_PDFEASIBLE") and err <= tol,
+              f"modeling dsdp: {label} differs from the native sdp")
+    return gpu
+
+
+def modeling_cpu():
+    """Phase 15's CPU side: (a)'s models through op.solve() on the CPU
+    and with solver='glpk' (HiGHS), and (c)'s OSQP solve on the CPU ->
+    name -> results and seconds."""
+    from kvxopt_tpu_torch import config, osqp, solvers
+    config.set_default_device("cpu")
+    out = {}
+    for name, (prob, xs) in pwl_models().items():
+        t0 = time.perf_counter()
+        sol = solve_recorded(prob)
+        secs = time.perf_counter() - t0
+        values = [np.asarray(v.value).ravel() for v in xs]
+        objective = float(prob.objective.value()[0])
+        t0 = time.perf_counter()
+        prob.solve(solver="glpk")
+        out[name] = (sol["status"], sol["iterations"], values, objective, secs,
+                     prob.status, float(prob.objective.value()[0]),
+                     time.perf_counter() - t0)
+    P, q, G, h, A, b = osqp_problem()
+    t0 = time.perf_counter()
+    with spy(osqp, "_admm_core") as seen:
+        sol = solvers.qp(P, q, G, h, A, b, solver="osqp")
+    out["osqp"] = (sol["status"], int(seen[0][3]),
+                   np.asarray(sol["x"]).ravel(), time.perf_counter() - t0)
+    return out
+
+
+def modeling_compare(pending, gpu):
+    """Phase 15 against the CPU: per model the same status, iterations
+    within 1, every variable within 1e-7 (1 + |value|), and the objective
+    within 1e-6 relative of HiGHS's (solver='glpk'); OSQP the same status,
+    iterations within 2 and x within 1e-6 relative."""
+    try:
+        cpu = pending.get()
+    except Exception as e:  # noqa: BLE001  (the worker's error, reported)
+        fail(f"modeling: the CPU side raised {e!r}")
+    for name, card in gpu.items():
+        if name == "osqp":
+            continue
+        stg, itg, vg, og = card
+        st, it, v, o, secs, gst, go, gsecs = cpu[name]
+        dv = max(np.linalg.norm(a - b) / (1 + np.linalg.norm(b))
+                 for a, b in zip(vg, v))
+        dg = abs(og - go) / max(1.0, abs(go))
+        print(f"modeling {name} cpu: {secs:.2f} s, status {st}, iterations "
+              f"{it} (card {itg}), |value_gpu-value_cpu|/(1+|value_cpu|) "
+              f"{dv:.3e} (tol 1e-7); HiGHS (solver='glpk') {gsecs:.2f} s, "
+              f"status {gst}, objective {go!r}, card's objective against it "
+              f"{dg:.3e} (tol 1e-6)", flush=True)
+        check(st == stg and abs(it - itg) <= 1 and dv <= 1e-7,
+              f"modeling {name}: differs from the CPU")
+        check(gst == "optimal" and dg <= 1e-6,
+              f"modeling {name}: objective differs from HiGHS's")
+    stg, itg, xg = gpu["osqp"]
+    st, it, x, secs = cpu["osqp"]
+    dx = np.linalg.norm(xg - x) / np.linalg.norm(x)
+    print(f"modeling osqp cpu: {secs:.2f} s, status {st}, iterations {it} "
+          f"(card {itg}), |x_gpu-x_cpu|/|x_cpu| {dx:.3e} (tol 1e-6)",
+          flush=True)
+    check(st == stg and abs(it - itg) <= 2 and dx <= 1e-6,
+          "modeling osqp: differs from the CPU")
+
+
 def cpu_solve(name, threads):
     """In a worker process: the phase's problems on CPU tensors, the
     kernels' plain versions -> (x, iterations, status, seconds); x over
@@ -2017,6 +2388,8 @@ def cpu_solve(name, threads):
         return nonlinear_cpu()
     if name == "sparse":
         return sparse_cpu()
+    if name == "modeling":
+        return modeling_cpu()
     from kvxopt_tpu_torch import ConeDims, solvers
     from kvxopt_tpu_torch.convert import (lp_state_to_numpy,
                                           problem_to_torch, state_to_numpy)
@@ -2045,7 +2418,7 @@ def cpu_solve(name, threads):
 
 
 def start_cpu_solves(names, workers=3):
-    """The CPU solves of phases 4, 6, 10, 11, 12, 13 and 14 in `workers`
+    """The CPU solves of phases 4, 6, 10 and 11-15 in `workers`
     spawned processes (no CUDA state is forked), sharing the cores the
     card's phases leave; they start in the order of `names`."""
     global POOL
@@ -2081,7 +2454,7 @@ def main():
     # the longest CPU solve first, then the two short ones of phases 11
     # and 12, so that the other two start once those are done
     pending = start_cpu_solves(("slice l+q+s", "lp batch", "conelp l+q+s",
-                                "nonlinear", "sparse", "slice",
+                                "nonlinear", "sparse", "modeling", "slice",
                                 "slice l+q+eq"))
     rows = phase1(dev)
     k1_times(dev)
@@ -2115,15 +2488,18 @@ def main():
     stamp("phase 13")
     gpu_sp, sparse_launches = sparse(dev)
     stamp("phase 14")
+    gpu_md = modeling(dev)
+    stamp("phase 15")
     for name, g in (("slice", gpu), ("slice l+q+eq", gpu_eq),
                     ("slice l+q+s", gpu_s), ("lp batch", gpu_lp),
                     ("conelp l+q+s", gpu_lqs)):
         cpu_phase(name, pending[name], g)
     nonlinear_compare(pending["nonlinear"], gpu_nl)
     sparse_compare(pending["sparse"], gpu_sp)
+    modeling_compare(pending["modeling"], gpu_md)
     POOL.close()
     POOL.join()
-    stamp("phases 4, 6, 10 and the CPU sides of 11, 12, 13 and 14")
+    stamp("phases 4, 6, 10 and the CPU sides of 11-15")
 
     launches["K4"] = k4_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",

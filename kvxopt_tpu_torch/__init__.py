@@ -6,9 +6,9 @@ first use (ops/_build.py), and its native host library (native/host.cpp:
 orderings, sparse LDL' and LU) with g++ at first use (native/__init__.py).
 
 The facade is kvxopt_tpu's (reference src/python/__init__.py):
-matrix/spmatrix/sparse/spdiag, the elementwise math and min/max/mul/div.
-The random generators (normal, uniform, setseed, getseed) come with the
-port of gsl.py.
+matrix/spmatrix/sparse/spdiag, the elementwise math, the random
+generators with seed control (normal, uniform, setseed, getseed; gsl.py)
+and min/max/mul/div.  The modeling layer is kvxopt_tpu_torch.modeling.
 """
 
 import numpy as _np
@@ -21,6 +21,7 @@ from .base import (  # noqa: F401
     exp, log, sqrt, sin, cos, tan, asin, acos, atan, sinh, cosh, tanh,
     conj, emul, ediv, emin, emax, norm,
     gemv, gemm, syrk, symv, axpy)
+from .gsl import normal, uniform, setseed, getseed  # noqa: F401
 from . import printing  # noqa: F401
 
 _pymin, _pymax = min, max
@@ -70,7 +71,7 @@ def div(*args):
 
 
 __all__ = [
-    "matrix", "spmatrix", "sparse", "spdiag", "exp", "log", "sqrt", "sin",
-    "cos", "tan", "mul", "div", "min", "max", "norm", "ConeDims",
-    "printing", "solvers",
+    "matrix", "spmatrix", "sparse", "spdiag", "normal", "uniform",
+    "setseed", "getseed", "exp", "log", "sqrt", "sin", "cos", "tan",
+    "mul", "div", "min", "max", "norm", "ConeDims", "printing", "solvers",
 ]

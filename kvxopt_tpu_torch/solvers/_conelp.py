@@ -1,5 +1,7 @@
-"""conelp: cone LPs by the extended self-dual embedding, and the
-natural-form wrappers lp/socp/sdp.
+"""conelp: cone LPs by the extended self-dual embedding, the
+natural-form wrappers lp/socp/sdp, and the solver= routes of lp, qp,
+socp and sdp (glpk, osqp, gurobi, mosek, dsdp) with their numpy result
+mappers.
 
 Counterpart of kvxopt_tpu/solvers/_conelp.py (reference coneprog.py
 conelp :31, lp :2550, socp :3044, sdp :3597).  The core is batched as
@@ -27,12 +29,12 @@ import math
 import numpy as np
 import torch
 
-from .. import cones
+from .. import cones, config
 from ..cones import ConeDims
 from .coneprog import (
     RUNNING, OPTIMAL, UNKNOWN, PRIMAL_INFEASIBLE, DUAL_INFEASIBLE, SINGULAR,
     _STATUS_STR, STEP, EXPON, Options, _asarray, _constraints,
-    _front_end_ops, _numel, _refuse_solver, _refuse_vector_spaces, _relgap,
+    _front_end_ops, _numel, _refuse_vector_spaces, _relgap,
     _resolve_options, _solve_device, _where)
 
 
@@ -418,6 +420,305 @@ def _ruiz_equilibrate(c, G, h, A, b, iters=6):
             dr, dra, dc)
 
 
+# ---------------------------------------------------------------------------
+# The solver= routes' result mappers (numpy on the host, as in the JAX
+# package)
+# ---------------------------------------------------------------------------
+
+
+def _np_slack(s, ml, mq):
+    """-max_step over an l/q cone layout: min margin to the boundary
+    (reference misc.max_step via coneprog.py:2965-2966)."""
+    vals = []
+    if ml:
+        vals.append(np.min(s[:ml]))
+    ofs = ml
+    for k in mq:
+        blk = s[ofs:ofs + k]
+        vals.append(blk[0] - np.linalg.norm(blk[1:]))
+        ofs += k
+    return float(min(vals)) if vals else None
+
+
+def _bridge_cone_result(status, x, z, y, c, G, h, A, b, ml, mq, P=None):
+    """Map a generic bridge return (status string, x, z, y) onto the
+    reference's solution dict — the shared result math of the reference's
+    external-solver dispatch (coneprog.py:4427-4560, same computations for
+    gurobi as for mosek)."""
+    c = np.asarray(c, dtype=float).reshape(-1)
+    h = (np.asarray(h, dtype=float).reshape(-1) if h is not None
+         else np.zeros(0))
+    Gm = (np.asarray(G, dtype=float).reshape(len(h), -1) if G is not None
+          else np.zeros((0, len(c))))
+    n = len(c)
+    Am = (np.asarray(A, dtype=float).reshape(-1, n)
+          if A is not None else np.zeros((0, n)))
+    bv = (np.asarray(b, dtype=float).reshape(-1)
+          if b is not None else np.zeros(0))
+    Pm = (np.asarray(P, dtype=float).reshape(n, n)
+          if P is not None else None)
+    resx0 = max(1.0, np.linalg.norm(c))
+    resy0 = max(1.0, np.linalg.norm(bv))
+    resz0 = max(1.0, np.linalg.norm(h))
+    sol = dict.fromkeys((
+        "x", "s", "y", "z", "primal objective", "dual objective", "gap",
+        "relative gap", "primal infeasibility", "dual infeasibility",
+        "residual as primal infeasibility certificate",
+        "residual as dual infeasibility certificate",
+        "primal slack", "dual slack"))
+    sol["status"] = status
+    if status != "optimal" or x is None:
+        return sol
+    xv = np.asarray(x, dtype=float).reshape(-1)
+    zv = (np.asarray(z, dtype=float).reshape(-1) if z is not None
+          else np.zeros(len(h)))
+    yv = (np.asarray(y, dtype=float).reshape(-1) if y is not None
+          else np.zeros(Am.shape[0]))
+    sv = h - Gm @ xv
+    quad = 0.5 * xv @ Pm @ xv if Pm is not None else 0.0
+    pcost = float(c @ xv + quad)
+    dcost = float(-h @ zv - bv @ yv - quad)
+    gap = float(sv @ zv)
+    rx = c + Gm.T @ zv + Am.T @ yv
+    if Pm is not None:
+        rx = rx + Pm @ xv
+    resx = np.linalg.norm(rx) / resx0
+    resy = np.linalg.norm(bv - Am @ xv) / resy0
+    resz = np.linalg.norm(Gm @ xv + sv - h) / resz0
+    sol.update({
+        "x": xv, "s": sv, "y": yv, "z": zv,
+        "primal objective": pcost, "dual objective": dcost,
+        "gap": gap,
+        "relative gap": (gap / -pcost if pcost < 0.0 else
+                         gap / dcost if dcost > 0.0 else None),
+        "primal infeasibility": float(max(resy, resz)),
+        "dual infeasibility": float(resx),
+        "primal slack": _np_slack(sv, ml, mq),
+        "dual slack": _np_slack(zv, ml, mq)})
+    return sol
+
+
+def _mosek_cone_result(solsta, x, z, y, c, G, h, A, b, ml, mq, P=None):
+    """Map a MOSEK bridge return (solsta, x, z, y) onto the reference's
+    solution dict, including residuals, slacks, and scaled infeasibility
+    certificates (reference coneprog.py:2923-3036 for lp, :4432-4560 for
+    qp, :3399-3520 for socp)."""
+    import mosek
+
+    c = np.asarray(c, dtype=float).reshape(-1)
+    h = np.asarray(h, dtype=float).reshape(-1)
+    Gm = np.asarray(G, dtype=float).reshape(len(h), -1)
+    m, n = Gm.shape
+    Am = (np.asarray(A, dtype=float).reshape(-1, n)
+          if A is not None else np.zeros((0, n)))
+    bv = (np.asarray(b, dtype=float).reshape(-1)
+          if b is not None else np.zeros(0))
+    Pm = (np.asarray(P, dtype=float).reshape(n, n)
+          if P is not None else None)
+    resx0 = max(1.0, np.linalg.norm(c))
+    resy0 = max(1.0, np.linalg.norm(bv))
+    resz0 = max(1.0, np.linalg.norm(h))
+    sol = dict.fromkeys((
+        "x", "s", "y", "z", "primal objective", "dual objective", "gap",
+        "relative gap", "primal infeasibility", "dual infeasibility",
+        "residual as primal infeasibility certificate",
+        "residual as dual infeasibility certificate",
+        "primal slack", "dual slack"))
+
+    near_opt = getattr(mosek.solsta, "near_optimal", None)
+    if solsta in (mosek.solsta.optimal, near_opt):
+        sol["status"] = ("optimal" if solsta is mosek.solsta.optimal
+                         else "near optimal")
+        xv = np.asarray(x, dtype=float).reshape(-1)
+        zv = np.asarray(z, dtype=float).reshape(-1)
+        yv = (np.asarray(y, dtype=float).reshape(-1)
+              if y is not None else np.zeros(0))
+        sv = h - Gm @ xv
+        quad = 0.5 * xv @ Pm @ xv if Pm is not None else 0.0
+        pcost = float(c @ xv + quad)
+        dcost = float(-h @ zv - bv @ yv - quad)
+        gap = float(sv @ zv)
+        rx = c + Gm.T @ zv + Am.T @ yv
+        if Pm is not None:
+            rx = rx + Pm @ xv
+        resx = np.linalg.norm(rx) / resx0
+        resy = np.linalg.norm(bv - Am @ xv) / resy0
+        resz = np.linalg.norm(Gm @ xv + sv - h) / resz0
+        sol.update({
+            "x": xv, "s": sv, "y": yv, "z": zv,
+            "primal objective": pcost, "dual objective": dcost,
+            "gap": gap,
+            "relative gap": (gap / -pcost if pcost < 0.0 else
+                             gap / dcost if dcost > 0.0 else None),
+            "primal infeasibility": float(max(resy, resz)),
+            "dual infeasibility": float(resx),
+            "primal slack": _np_slack(sv, ml, mq),
+            "dual slack": _np_slack(zv, ml, mq)})
+    elif solsta is mosek.solsta.prim_infeas_cer:
+        sol["status"] = "primal infeasible"
+        zv = np.asarray(z, dtype=float).reshape(-1)
+        yv = (np.asarray(y, dtype=float).reshape(-1)
+              if y is not None else np.zeros(0))
+        scal = 1.0 / (-h @ zv - bv @ yv)
+        zv, yv = zv * scal, yv * scal
+        sol.update({
+            "y": yv, "z": zv, "dual objective": 1.0,
+            "residual as primal infeasibility certificate": float(
+                np.linalg.norm(-Am.T @ yv - Gm.T @ zv) / resx0),
+            "dual slack": _np_slack(zv, ml, mq)})
+    elif solsta == mosek.solsta.dual_infeas_cer:
+        sol["status"] = "dual infeasible"
+        xv = np.asarray(x, dtype=float).reshape(-1)
+        xv = xv * (-1.0 / float(c @ xv))
+        sv = -Gm @ xv
+        resy = np.linalg.norm(Am @ xv) / resy0
+        resz = np.linalg.norm(Gm @ xv + sv) / resz0
+        sol.update({
+            "x": xv, "s": sv, "primal objective": -1.0,
+            "residual as dual infeasibility certificate": float(
+                max(resy, resz)),
+            "primal slack": _np_slack(sv, ml, mq)})
+    else:
+        sol["status"] = "unknown"
+    return sol
+
+
+def _dsdp_result(dsdpstatus, x, zl, zs, c, Gl, hl, Gs, hs):
+    """Full result-dict mapping for solvers.sdp(solver='dsdp') — the
+    reference's DSDP branch (coneprog.py:3924-4113): status translation,
+    certificate scaling, residuals, slacks, and the complete key set."""
+    c = np.asarray(c, dtype=float).reshape(-1)
+    n = len(c)
+    ml = 0 if hl is None else int(np.asarray(hl).size)
+    Glm = (np.asarray(Gl, dtype=float).reshape(ml, n) if ml
+           else np.zeros((0, n)))
+    hlv = (np.asarray(hl, dtype=float).reshape(-1) if ml
+           else np.zeros(0))
+    Gs = Gs or []
+    hs = hs or []
+    ms = [int(np.asarray(hk).shape[0]) for hk in hs]
+    Gsm = [np.asarray(Gk, dtype=float).reshape(m * m, n)
+           for Gk, m in zip(Gs, ms)]
+    hsm = [np.asarray(hk, dtype=float).reshape(m, m)
+           for hk, m in zip(hs, ms)]
+
+    resx0 = max(1.0, np.linalg.norm(c))
+    rh = [np.linalg.norm(hlv)] + [np.linalg.norm(hk) for hk in hsm]
+    resz0 = max(1.0, np.linalg.norm(rh))
+
+    def _slack(sl_, ss_):
+        vals = ([float(np.min(sl_))] if ml else []) + \
+            [float(np.linalg.eigvalsh(0.5 * (S + S.T))[0]) for S in ss_]
+        return min(vals) if vals else None
+
+    def _gxT(zl_, zs_):
+        """G'z over the l/s blocks (full symmetric storage)."""
+        out = (Glm.T @ zl_ if ml else np.zeros(n))
+        for Gk, Z in zip(Gsm, zs_):
+            out = out + Gk.T @ Z.reshape(-1)
+        return out
+
+    def _gx(x_):
+        """(Gl x, [mat(Gs_k x)])"""
+        sl_ = Glm @ x_ if ml else np.zeros(0)
+        ss_ = [(Gk @ x_).reshape(m, m) for Gk, m in zip(Gsm, ms)]
+        return sl_, ss_
+
+    keys = ("x", "sl", "ss", "y", "zl", "zs", "primal objective",
+            "dual objective", "gap", "relative gap",
+            "primal infeasibility", "dual infeasibility",
+            "residual as primal infeasibility certificate",
+            "residual as dual infeasibility certificate",
+            "primal slack", "dual slack")
+    sol = dict.fromkeys(keys)
+
+    if dsdpstatus == "DSDP_UNBOUNDED":
+        sol["status"] = "dual infeasible"
+        xv = np.asarray(x, dtype=float).reshape(-1)
+        xv = xv * (-1.0 / float(c @ xv))
+        sl_, ss_ = _gx(xv)
+        sl_, ss_ = -sl_, [-0.5 * (S + S.T) for S in ss_]
+        glx, gsx = _gx(xv)
+        rz = np.concatenate([glx + sl_] +
+                            [(S + gs).reshape(-1)
+                             for S, gs in zip(ss_, gsx)]) \
+            if (ml or ms) else np.zeros(0)
+        sol.update({
+            "x": xv, "sl": sl_, "ss": ss_, "primal objective": -1.0,
+            "residual as dual infeasibility certificate":
+                float(np.linalg.norm(rz) / resz0),
+            "primal slack": _slack(sl_, ss_)})
+        return sol
+
+    if dsdpstatus == "DSDP_INFEASIBLE":
+        sol["status"] = "primal infeasible"
+        zlv = (np.asarray(zl, dtype=float).reshape(-1) if ml
+               else np.zeros(0))
+        zsv = [np.asarray(Z, dtype=float).reshape(m, m)
+               for Z, m in zip(zs or [], ms)]
+        hz = float(hlv @ zlv) + sum(
+            float(np.sum(hk * Z)) for hk, Z in zip(hsm, zsv))
+        scal = 1.0 / (-hz)
+        zlv = zlv * scal
+        zsv = [0.5 * (Z + Z.T) * scal for Z in zsv]
+        rx = -_gxT(zlv, zsv)
+        sol.update({
+            "y": np.zeros(0), "zl": zlv, "zs": zsv,
+            "dual objective": 1.0,
+            "residual as primal infeasibility certificate":
+                float(np.linalg.norm(rx) / resx0),
+            "dual slack": _slack(zlv, zsv)})
+        return sol
+
+    sol["status"] = ("optimal" if dsdpstatus == "DSDP_PDFEASIBLE"
+                     else "unknown")
+    if x is None or zl is None and ml:
+        return sol
+    xv = np.asarray(x, dtype=float).reshape(-1)
+    zlv = (np.asarray(zl, dtype=float).reshape(-1) if ml
+           else np.zeros(0))
+    zsv = [0.5 * (np.asarray(Z, dtype=float).reshape(m, m) +
+                  np.asarray(Z, dtype=float).reshape(m, m).T)
+           for Z, m in zip(zs or [], ms)]
+    glx, gsx = _gx(xv)
+    sl_ = hlv - glx
+    ss_ = [0.5 * ((hk - gs) + (hk - gs).T) for hk, gs in zip(hsm, gsx)]
+    pcost = float(c @ xv)
+    dcost = -float(hlv @ zlv) - sum(
+        float(np.sum(hk * Z)) for hk, Z in zip(hsm, zsv))
+    gap = float(sl_ @ zlv) + sum(
+        float(np.sum(S * Z)) for S, Z in zip(ss_, zsv))
+    relgap = (gap / -pcost if pcost < 0.0 else
+              gap / dcost if dcost > 0.0 else None)
+    rx = c + _gxT(zlv, zsv)
+    resx = float(np.linalg.norm(rx) / resx0)
+    rz = np.concatenate(
+        [glx + sl_ - hlv] +
+        [(gs + S - hk).reshape(-1)
+         for gs, S, hk in zip(gsx, ss_, hsm)]) if (ml or ms) else \
+        np.zeros(0)
+    resz = float(np.linalg.norm(rz) / resz0)
+    pinfres = dinfres = None
+    if sol["status"] != "optimal" and dcost > 0.0:
+        pinfres = float(np.linalg.norm(_gxT(zlv, zsv)) / resx0 / dcost)
+    if sol["status"] != "optimal" and pcost < 0.0:
+        rzc = np.concatenate(
+            [glx + sl_] + [(gs + S).reshape(-1)
+                           for gs, S in zip(gsx, ss_)])
+        dinfres = float(np.linalg.norm(rzc) / resz0 / -pcost)
+    sol.update({
+        "x": xv, "sl": sl_, "ss": ss_, "y": np.zeros(0),
+        "zl": zlv, "zs": zsv,
+        "primal objective": pcost, "dual objective": dcost,
+        "gap": gap, "relative gap": relgap,
+        "primal infeasibility": resz, "dual infeasibility": resx,
+        "residual as primal infeasibility certificate": pinfres,
+        "residual as dual infeasibility certificate": dinfres,
+        "primal slack": _slack(sl_, ss_),
+        "dual slack": _slack(zlv, zsv)})
+    return sol
+
+
 def _host(a):
     """numpy copy of an array-like or tensor (None stays None)."""
     if a is None or not isinstance(a, torch.Tensor):
@@ -425,13 +726,76 @@ def _host(a):
     return a.detach().cpu().numpy()
 
 
+def _on_host(*args):
+    """The data of a solver= route on the host: tensors (on any device)
+    as numpy arrays, lists of them item by item, the rest as given."""
+    return [[_host(a) for a in v] if isinstance(v, (list, tuple))
+            else _host(v) for v in args]
+
+
+def _qp_route(solver, P, q, G, h, A, b, options):
+    """qp(solver='osqp' | 'gurobi' | 'mosek'): the JAX package's branches
+    (its solvers/coneprog.py qp) on host data; osqp runs on the data's
+    device."""
+    if solver == "osqp":
+        from .. import osqp as _osqp
+        with config.using_device(_solve_device(q, G, h, A, b, P)):
+            return _osqp.qp_bridge(*_on_host(P, q, G, h, A, b),
+                                   options=options)
+    P, q, G, h, A, b = _on_host(P, q, G, h, A, b)
+    ml = 0 if h is None else np.asarray(h).size
+    if solver == "gurobi":
+        from .. import gurobi as _gurobi
+        opts = (options or {}).get("gurobi")
+        status, x, z, y = _gurobi.qp(q, G, h, A, b, P, options=opts)
+        return _bridge_cone_result(status, x, z, y, q, G, h, A, b,
+                                   ml, [], P=P)
+    from .. import msk
+    opts = (options or {}).get("mosek")
+    if opts:
+        solsta, x, z, y = msk.qp(P, q, G, h, A, b, options=opts)
+    else:
+        solsta, x, z, y = msk.qp(P, q, G, h, A, b)
+    return _mosek_cone_result(solsta, x, z, y, q, G, h, A, b, ml, [], P=P)
+
+
 def lp(c, G, h, A=None, b=None, solver=None, primalstart=None,
        dualstart=None, kktsolver=None, options=None):
-    """LP: minimize c'x s.t. Gx <= h, Ax = b, through conelp.  With
-    options['equilibrate'] the LP is Ruiz-scaled first and the iterates
-    unscaled after.  The routes solver='glpk', 'osqp', 'gurobi' and
-    'mosek' are not ported yet."""
-    _refuse_solver(solver, ("glpk", "osqp", "gurobi", "mosek"))
+    """LP: minimize c'x s.t. Gx <= h, Ax = b.  `solver` accepts None
+    (native conelp), 'glpk' (HiGHS-backed bridge), 'osqp' (the ADMM of
+    osqp.py, on the data's device as the native route), 'gurobi' or
+    'mosek' (requiring their packages): the reference's dispatch contract
+    (coneprog.py:2807-2838).  The routes other than the native one take
+    their data to the host and return its numpy result dictionary.  With
+    options['equilibrate'] the native route Ruiz-scales the LP first and
+    unscales the iterates after."""
+    if solver == "glpk":
+        from .. import glpk
+        return glpk.lp_bridge(*_on_host(c, G, h, A, b), options=options)
+    if solver == "osqp":
+        from .. import osqp as _osqp
+        with config.using_device(_solve_device(c, G, h, A, b)):
+            return _osqp.qp_bridge(None, *_on_host(c, G, h, A, b),
+                                   options=options)
+    if solver == "gurobi":
+        # reference coneprog.py:2834-2845: LP through gurobi.qp with P=None
+        from .. import gurobi as _gurobi
+        c, G, h, A, b = _on_host(c, G, h, A, b)
+        opts = (options or {}).get("gurobi")
+        status, x, z, y = _gurobi.qp(c, G, h, A, b, None, options=opts)
+        ml = np.asarray(h).size
+        return _bridge_cone_result(status, x, z, y, c, G, h, A, b, ml, [])
+    if solver == "mosek":
+        from .. import msk
+        c, G, h, A, b = _on_host(c, G, h, A, b)
+        opts = (options or {}).get("mosek")
+        if opts:
+            solsta, x, z, y = msk.lp(c, G, h, A, b, options=opts)
+        else:
+            solsta, x, z, y = msk.lp(c, G, h, A, b)
+        hv = np.asarray(h, dtype=float).reshape(-1)
+        return _mosek_cone_result(solsta, x, z, y, c, G, h, A, b,
+                                  len(hv), [])
     ml = int(_numel(h))
     if options and options.get("equilibrate"):
         # Ruiz presolve for badly scaled LPs: solve the scaled problem on
@@ -495,14 +859,54 @@ def _split(sol, ml, shapes, names):
     return sol
 
 
+def _socp_mosek(c, Gl, hl, Gq, hq, A, b, options):
+    """socp(solver='mosek') on host data (the JAX package's branch)."""
+    from .. import msk
+    opts = (options or {}).get("mosek")
+    if opts:
+        solsta, x, zl, zq = msk.socp(c, Gl, hl, Gq, hq, options=opts)
+    else:
+        solsta, x, zl, zq = msk.socp(c, Gl, hl, Gq, hq)
+    ml = 0 if hl is None else np.asarray(hl).size
+    mq = [np.asarray(hk).size for hk in (hq or [])]
+    Gfull = np.vstack(
+        ([np.asarray(Gl, dtype=float).reshape(ml, -1)] if ml else [])
+        + [np.asarray(Gk, dtype=float).reshape(mk, -1)
+           for Gk, mk in zip(Gq or [], mq)])
+    hfull = np.concatenate(
+        ([np.asarray(hl, dtype=float).reshape(-1)] if ml else [])
+        + [np.asarray(hk, dtype=float).reshape(-1) for hk in (hq or [])])
+    z = (np.concatenate([np.asarray(zl).reshape(-1)]
+                        + [np.asarray(zk).reshape(-1) for zk in zq])
+         if zl is not None else None)
+    sol = _mosek_cone_result(solsta, x, z, None, c, Gfull, hfull,
+                             A, b, ml, mq)
+    # split the stacked s/z back into the socp natural form
+    # (reference coneprog.py:3470-3490)
+    for key, parts in (("s", ("sl", "sq")), ("z", ("zl", "zq"))):
+        v = sol.pop(key)
+        if v is None:
+            sol[parts[0]], sol[parts[1]] = None, None
+        else:
+            sol[parts[0]] = v[:ml]
+            blocks, ofs = [], ml
+            for k in mq:
+                blocks.append(v[ofs:ofs + k])
+                ofs += k
+            sol[parts[1]] = blocks
+    return sol
+
+
 def socp(c, Gl=None, hl=None, Gq=None, hq=None, A=None, b=None,
          solver=None, primalstart=None, dualstart=None, kktsolver=None,
          options=None):
     """SOCP in natural form: minimize c'x s.t. Gl x <= hl plus
     second-order cone blocks s_k = h_k - G_k x in Q (reference
     coneprog.py:3044).  The result holds zl/zq and sl/sq beside z and s.
-    solver='mosek' is not ported yet."""
-    _refuse_solver(solver, ("mosek",))
+    solver='mosek' dispatches to the MOSEK bridge (requires the mosek
+    package) on the host, as the reference (coneprog.py:3363)."""
+    if solver == "mosek":
+        return _socp_mosek(*_on_host(c, Gl, hl, Gq, hq, A, b), options)
     dtype = _resolve_options(options)[1]
     Gq, hq = list(Gq or []), list(hq or [])
     dev = _solve_device(c, Gl, hl, *Gq, *hq, A, b)
@@ -521,8 +925,27 @@ def sdp(c, Gl=None, hl=None, Gs=None, hs=None, A=None, b=None,
     sum_i x_i (Gs[k] column i, reshaped) <= hs[k] in the PSD order
     (reference coneprog.py:3597; Gs[k] columns are vectorized coefficient
     matrices, hs[k] square matrices).  The result holds zl/zs and sl/ss
-    (m x m blocks) beside z and s.  solver='dsdp' is not ported yet."""
-    _refuse_solver(solver, ("dsdp",))
+    (m x m blocks) beside z and s.  solver='dsdp' routes through the
+    DSDP-interface bridge on the host (reference coneprog.py:3924)."""
+    if solver == "dsdp":
+        if A is not None:
+            raise ValueError("sdp() with the solver = 'dsdp' option does "
+                             "not handle problems with equality "
+                             "constraints")
+        from .. import dsdp as _dsdp
+        from . import options as global_options
+        c, Gl, hl, Gs, hs = _on_host(c, Gl, hl, Gs, hs)
+        # solvers.options['dsdp'] (reference coneprog.py:3930) merged
+        # under per-call options; solvers.sdp callers expect
+        # conelp-level accuracy from every route, so tighten the
+        # dual-scaling gap beyond the DSDP interface default (1e-5)
+        # unless the user set it explicitly
+        dopts = dict(global_options.get("dsdp") or {})
+        dopts.update((options or {}).get("dsdp") or {})
+        dopts.setdefault("DSDP_GapTolerance", 1e-8)
+        status, x, r, zl, zs = _dsdp.sdp(c, Gl, hl, Gs, hs,
+                                         options=dopts)
+        return _dsdp_result(status, x, zl, zs, c, Gl, hl, Gs, hs)
     dtype = _resolve_options(options)[1]
     Gs, hs = list(Gs or []), list(hs or [])
     dev = _solve_device(c, Gl, hl, *Gs, *hs, A, b)

@@ -12,8 +12,9 @@ batch of one, and return the reference's result dictionary.  Array-like
 inputs go to config.default_device (the card); tensors keep their own
 device.  The vector-space operations of custom x and y spaces (VecOps)
 live here; cvxprog's cpl and cp take them, coneqp and conelp do not
-yet.  The `solver=` routes other than the native one, executor dispatch
-and options['profile'] are not ported yet (ROADMAP.md, Queue 1).
+yet.  Executor dispatch and options['profile'] are not ported yet
+(ROADMAP.md, Queue 1).  The `solver=` routes (osqp, gurobi, mosek) live
+beside the conelp ones in _conelp.py.
 """
 
 from __future__ import annotations
@@ -248,16 +249,6 @@ class _AsGiven:
     @staticmethod
     def from_user(w):
         return w
-
-
-def _refuse_solver(solver, routes):
-    """The routes other than the native solver that the JAX function
-    takes raise; other names fall through to the native solver, as
-    there."""
-    if solver in routes:
-        raise NotImplementedError(
-            f"solver={solver!r} is not ported yet; only the native solver "
-            "runs (ROADMAP.md, Queue 1 item 7)")
 
 
 def _matrix_ops(G, A, P):
@@ -612,9 +603,15 @@ def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None, initvals=None,
 def qp(P, q, G=None, h=None, A=None, b=None, solver=None, initvals=None,
        kktsolver=None, options=None):
     """Natural-form QP (reference coneprog.py:4187): minimize
-    (1/2)x'Px + q'x s.t. Gx <= h, Ax = b, through coneqp.  The routes
-    solver='osqp', 'mosek' and 'gurobi' are not ported yet."""
-    _refuse_solver(solver, ("osqp", "gurobi", "mosek"))
+    (1/2)x'Px + q'x s.t. Gx <= h, Ax = b.  solver in (None, 'osqp',
+    'mosek', 'gurobi') per the reference's dispatch
+    (coneprog.py:4374-4426): None is coneqp; 'osqp' the ADMM of osqp.py
+    on the data's device; 'mosek' and 'gurobi' their bridges (requiring
+    their packages).  The routes other than the native one take their
+    data to the host and return its numpy result dictionary."""
+    if solver in ("osqp", "gurobi", "mosek"):
+        from ._conelp import _qp_route
+        return _qp_route(solver, P, q, G, h, A, b, options)
     if G is None and h is None:
         raise ValueError("qp requires inequality constraints G, h")
     return coneqp(P, q, G, h, {"l": int(_numel(h))}, A, b, initvals=initvals,
