@@ -10,7 +10,9 @@ with numpy data and no device named; the nonlinear front ends
 (cholmod's tile-supernodal factorization on the card, the tile and dense
 routes of a scenario batch, a sparse-KKT LP); and the modeling layer
 (op.solve on PWL models, MPS I/O) with the solver= routes (osqp's ADMM
-on the card, glpk, dsdp).
+on the card, glpk, dsdp); and the sequential batch driver with
+chol2_mixed's per-lane f64 fallback, misc on the card and
+options['profile'].
 
     python3 chip_smoke.py
 
@@ -138,7 +140,29 @@ Phases (any failure exits non-zero and prints no result):
      solvers.sdp(solver='dsdp') on the userguide SDP
      (examples/dsdp_dual_scaling.py) against the native sdp on the card:
      objectives within 1e-6 relative, dsdp.sdp at its default gap
-     tolerance within that tolerance, 1e-5.
+     tolerance within that tolerance, 1e-5;
+ 16. "seq and misc": (a) parallel.batched_qp_solver_seq (chol2_mixed
+     with its per-lane f64 fallback, group=1, then group=2) on phase 3's
+     16 problems: every lane optimal, residuals below 1e-6, x within
+     1e-6 (1 + |x|) of phase 3's, K1-K3 launched at n=512; per lane the
+     iterations, K1's factorizations and those that took the fallback
+     (each lane alone, kkt.cholesky_nan's calls counted; fewer than
+     K1's); K1-K3 on the inputs the driver gives them at B=1 and B=2
+     (captured by path_inputs) against their plain versions at phase
+     1's tolerances, K3 in both modes; warm medians of 3
+     beside phase 3's two-pass wall and each pass alone (timed on lanes
+     0-7 where the first group=1 run takes over SEQ_CUT_S); one lane's
+     device profile; (b) coneqp with misc.kkt_chol through the H=P
+     wrapper against kktsolver='chol' on lane 0 of phase 7's problems
+     (status and iterations equal, x within 1e-7 (1 + |x|)), then misc's
+     pack, unpack, sdot, snrm2, compute_scaling, scale (four modes) and
+     scale2 on the card against CPU tensors with one W: at the interior
+     pair (s + e, z + e) of that solution all to 1e-10, at s and z
+     themselves likewise except compute_scaling's MISC_COND outputs
+     (1e-6), printed beside their change on the CPU under a 1e-15
+     relative change of s and z; (c) solvers.qp on phase 3's lane 0 with
+     options['profile']: one Chrome trace that parses and holds CUDA
+     kernel events; the call without the key writes nothing.
 The CPU solves of phases 4, 6, 10 and 11-15 run in three worker
 processes (spawned after the build, at lower priority, a few CPU threads
 each; phase 10's first, then the short ones of 11-15, then phases 4
@@ -152,7 +176,8 @@ Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
 and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
 synchronizing calls per IPM iteration.  The line before the card's line
 is the kernels line: per kernel its launches on the main path (phase 7;
-K4: phase 2) and in phase 14(b) (launches_phase14), its error against
+K4: phase 2), in phase 14(b) (launches_phase14) and in phase 16(a)'s
+group=1 run (launches_phase16), its error against
 the plain version, its time, the plain version's and one PyTorch call's
 (median of 20), and its bound from the bytes and flops of the same
 shape.  The last line is
@@ -1184,8 +1209,9 @@ def solve_phase(name, dev, dims, data):
     print(f"{name} wall time: median {np.median(ts):.4f} s over 3 warm "
           f"batch solves {['%.4f' % t for t in ts]}, mean iterations "
           f"{it.mean():.2f}")
-    breakdown(name, dims, args)
-    return (x, it, status), launches, shapes
+    walls = breakdown(name, dims, args)
+    walls["two-pass"] = float(np.median(ts))
+    return (x, it, status), launches, shapes, walls
 
 
 # cuSOLVER's kernels behind torch.linalg.eigh / eigvalsh (Jacobi for
@@ -1203,20 +1229,23 @@ HOST_KEYS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 def breakdown(name, dims, args):
     """Each pass alone on all lanes, and the device's share of pass 1:
     K1-K3's and cuSOLVER's eigh and potrf device time and launches, and
-    the host's synchronizing calls per IPM iteration."""
+    the host's synchronizing calls per IPM iteration.  Returns each
+    pass's wall {"pass 1": s, "pass 2": s}."""
     from kvxopt_tpu_torch.parallel import batched_qp_solver
     from kvxopt_tpu_torch.solvers.coneprog import Options
     fast = batched_qp_solver(dims, "chol2_mixed_nofb", Options(ozaki=True))
     slow = batched_qp_solver(dims, "chol2")
     iters = None
+    walls = {}
     for pname, fn in (("pass 1 chol2_mixed_nofb", fast),
                       ("pass 2 chol2 (f64)", slow)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
+        walls[pname[:6]] = time.perf_counter() - t0
         print(f"{name} breakdown {pname} on all {B} lanes: "
-              f"{time.perf_counter() - t0:.4f} s, iterations "
+              f"{walls[pname[:6]]:.4f} s, iterations "
               f"{out[4].tolist()}, status {out[5].tolist()}")
         iters = iters or int(out[4].max())
     wall, kern, calls, _, why = trace(lambda: fast(*args), host_ops=True)
@@ -1224,7 +1253,7 @@ def breakdown(name, dims, args):
     if why or busy == 0:
         print(f"{name} profile pass 1: device time not measured "
               f"({why or 'no device events'})")
-        return
+        return walls
     print(f"{name} profile pass 1 (profiler on): wall {wall:.4f} s, device "
           f"busy {busy:.4f} s ({100 * busy / wall:.1f}%), {len(kern)} "
           "kernels")
@@ -1243,6 +1272,7 @@ def breakdown(name, dims, args):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+    return walls
 
 
 def slice_data(name):
@@ -2378,6 +2408,352 @@ def modeling_compare(pending, gpu):
           "modeling osqp: differs from the CPU")
 
 
+# phase 16, "seq and misc": the sequential batch driver with chol2_mixed's
+# per-lane f64 fallback; misc on the card; options['profile']
+SEQ_CUT_S = 60.0    # a first group=1 run longer than this times lanes 0-7
+
+
+def lane_fallbacks(seq, args):
+    """Per lane, (iterations, K1 factorizations, factorizations that took
+    the f64 fallback): each lane solved alone through `seq`, K1's
+    launches read from its count and kkt.cholesky_nan's calls counted by
+    wrapping it (on the orthant without equality rows the mixed strategy
+    reaches it only for the fallback's f64 factor)."""
+    from kvxopt_tpu_torch import kkt
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    plain = kkt.cholesky_nan
+    calls = [0]
+
+    def counted(K):
+        calls[0] += 1
+        return plain(K)
+
+    kkt.cholesky_nan = counted
+    try:
+        out = []
+        for i in range(args[1].shape[0]):
+            calls[0] = 0
+            k1 = cl.LAUNCHES["K1"]
+            st = seq(*(a[i:i + 1] for a in args))
+            out.append((int(st[4][0]), cl.LAUNCHES["K1"] - k1, calls[0]))
+    finally:
+        kkt.cholesky_nan = plain
+    return out
+
+
+def path_inputs(run):
+    """The inputs that `run` gives K1, K2 and K3 (ops.chol_ls's wrappers,
+    which ops.ipm_chol calls through the module): the first call's
+    arguments for each (kernel, B, n, k), cloned."""
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    names = {"K1": "batched_cholesky_ls", "K2": "chol_solve_ls",
+             "K3": "tri_solve_ls"}
+    plain = {k: getattr(cl, f) for k, f in names.items()}
+    seen = {}
+
+    def capture(kname):
+        def wrapped(*a, **kw):
+            t = a[0] if kname == "K1" else a[-1]
+            key = (kname, t.shape[0], t.shape[1],
+                   t.shape[2] if t.ndim == 3 and kname != "K1" else 0)
+            if key not in seen:
+                seen[key] = tuple(x.clone() for x in a)
+            return plain[kname](*a, **kw)
+        return wrapped
+
+    for k, f in names.items():
+        setattr(cl, f, capture(k))
+    try:
+        run()
+    finally:
+        for k, f in names.items():
+            setattr(cl, f, plain[k])
+    return seen
+
+
+def seq_kernels_agree(seq1, seq2, args):
+    """K1-K3 at the shapes and on the inputs that the sequential driver
+    gives them (lane 0 through group=1, lanes 0-1 through group=2),
+    against their plain versions at phase 1's tolerances: K1 with
+    k1_agrees, K2 1e-5 relative, K3 in both modes 1e-4 of max|xref|+1."""
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    seen = path_inputs(lambda: seq1(*(a[:1] for a in args)))
+    seen.update(path_inputs(lambda: seq2(*(a[:2] for a in args))))
+    print(f"seq kernel inputs (kernel, B, n, k): {sorted(seen)}")
+    for Bn in (1, 2):
+        check(("K1", Bn, N, 0) in seen, f"seq: no K1 input at B={Bn}")
+    for (kname, Bn, n, k), a in sorted(seen.items()):
+        label = f"seq {kname} B={Bn} n={n} k={k}"
+        if kname == "K1":
+            L, Dinv = cl.batched_cholesky_ls(a[0])
+            k1_agrees(label, a[0], L, Dinv)
+            continue
+        modes = (False,) if kname == "K2" else (False, True)
+        for trans in modes:
+            if kname == "K2":
+                x, xr = cl.chol_solve_ls(*a), cl.chol_solve_ls_ref(*a)
+            else:
+                x = cl.tri_solve_ls(*a, trans=trans)
+                xr = cl.tri_solve_ls_ref(*a, trans=trans)
+            torch.cuda.synchronize()
+            err = float((x - xr).abs().max())
+            scale, tol = ((float(xr.abs().max()), 1e-5) if kname == "K2"
+                          else (float(xr.abs().max()) + 1.0, 1e-4))
+            print(f"{label} trans={trans}: max|x-xref|/"
+                  f"{'max|xref|' if kname == 'K2' else '(max|xref|+1)'}="
+                  f"{err / scale:.3e} (tol {tol:g})")
+            check(err / scale < tol, f"{label}: disagrees with plain")
+
+
+def seq_checks(name, out, data, x3):
+    """Every lane optimal, KKT residuals below 1e-6 and x within 1e-6
+    (1 + |x|) of phase 3's."""
+    from kvxopt_tpu_torch.convert import state_to_numpy
+    x, _, s, z, it, status, _ = state_to_numpy(out)
+    print(f"{name}: status {status.tolist()}, iterations {it.tolist()}")
+    check((status == 1).all(), f"{name}: not every lane optimal")
+    res = residuals(*data[:4], x, s, z)
+    dx = np.linalg.norm(x - x3[:len(x)], axis=1) / (
+        1 + np.linalg.norm(x3[:len(x)], axis=1))
+    print(f"{name} max residuals: stationarity {res[0].max():.3e}, Gx+s=h "
+          f"{res[1].max():.3e} (tol 1e-6); max |x-x3|/(1+|x3|) "
+          f"{dx.max():.3e} (tol 1e-6)")
+    check(all(r.max() < 1e-6 for r in res), f"{name}: residuals too large")
+    check(dx.max() <= 1e-6, f"{name}: x differs from phase 3's")
+
+
+def seq_profile(seq, args):
+    """One lane through `seq` under the profiler: device busy share, K1-K3's
+    device ms and launches, and the kernels that take the most time."""
+    wall, kern, _, _, why = trace(lambda: seq(*(a[:1] for a in args)))
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    if why or busy == 0:
+        print(f"seq profile lane 0: device time not measured "
+              f"({why or 'no device events'})")
+        return
+    print(f"seq profile lane 0 (profiler on): wall {wall:.4f} s, device "
+          f"busy {busy:.4f} s ({100 * busy / wall:.1f}%)")
+    for kname, keys in (("K1", K1_KEYS), ("K2", K2_KEYS),
+                        ("K3", ("tri_kernel",))):
+        mine = [e for e in kern if any(k in e.key.lower() for k in keys)]
+        t = sum(e.self_device_time_total for e in mine) / 1e3
+        print(f"seq profile lane 0: {kname} {t:.3f} ms in "
+              f"{sum(e.count for e in mine)} launches "
+              f"({100 * t / 1e3 / busy:.2f}% of device busy time)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+              f"{e.key[:90]}")
+
+
+def seq_driver(dev, x3, walls3):
+    """Phase 16(a): batched_qp_solver_seq (chol2_mixed, group=1, then
+    group=2) on phase 3's 16 problems.  Returns the group=1 run's kernel
+    launches, its counts set to 0 just before it and read just after."""
+    from kvxopt_tpu_torch.convert import problem_to_torch
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch.parallel import batched_qp_solver_seq
+    dims, data = slice_data("slice")
+    args = problem_to_torch(*data, device=dev, dtype=torch.float64)
+    seq1 = batched_qp_solver_seq(dims)
+    torch.cuda.synchronize()
+    cl.reset_launches()
+    t0 = time.perf_counter()
+    out = seq1(*args)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches, shapes = dict(cl.LAUNCHES), dict(cl.LAUNCH_SHAPES)
+    print(f"seq group=1 first run on {B} lanes: {first:.4f} s")
+    print(f"seq group=1 launches during the solve: {launches}")
+    print(f"seq group=1 launches by (kernel, n, k): {sorted(shapes.items())}")
+    seq_checks("seq group=1", out, data, x3)
+    at_n = {k for (k, n, _), c in shapes.items() if n == N and c}
+    check({"K1", "K2", "K3"} <= at_n,
+          f"seq: K1-K3 not all launched at n={N} ({sorted(at_n)})")
+    for i, (it, k1, fb) in enumerate(lane_fallbacks(seq1, args)):
+        print(f"seq lane {i}: iterations {it}, f64 fallback in {fb} of "
+              f"{k1} K1 factorizations")
+        check(fb < k1, f"seq lane {i}: every K1 factorization fell back")
+    lanes = B
+    if first > SEQ_CUT_S:
+        lanes = B // 2
+        print(f"seq: cut to lanes 0-{lanes - 1} for the timed runs "
+              f"(first run over {SEQ_CUT_S:.0f} s)")
+    args = tuple(a[:lanes] for a in args)
+    data = tuple(a[:lanes] for a in data)
+    t1 = warm_times(lambda: seq1(*args))
+    seq2 = batched_qp_solver_seq(dims, group=2)
+    seq_checks("seq group=2", seq2(*args), data, x3)
+    seq_kernels_agree(seq1, seq2, args)
+    t2 = warm_times(lambda: seq2(*args))
+    print(f"seq walls on {lanes} lanes, warm median of 3: group=1 "
+          f"{np.median(t1):.4f} s {['%.4f' % t for t in t1]}, group=2 "
+          f"{np.median(t2):.4f} s {['%.4f' % t for t in t2]}; phase 3 on "
+          f"{B} lanes: two-pass {walls3['two-pass']:.4f} s, pass 1 alone "
+          f"{walls3['pass 1']:.4f} s, pass 2 alone {walls3['pass 2']:.4f} s")
+    seq_profile(seq1, args)
+    return launches
+
+
+def rel_err(a, b):
+    """max |a - b| over max |b| (a and b tensors or floats)."""
+    a, b = (torch.as_tensor(v, dtype=torch.float64).cpu() for v in (a, b))
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+
+def misc_calls(s, z, u, W=None, lam=None):
+    """misc's vector functions on s, z and u (all on one device), with the
+    scaling W, lambda computed from (s, z) unless given: {name: result};
+    r and rti, free up to the sign of each singular vector, as r r'."""
+    from kvxopt_tpu_torch import misc
+    d = LQS_DIMS
+    pk = misc.pack(s, d)
+    out = {"pack": pk, "unpack": misc.unpack(pk, d),
+           "sdot": misc.sdot(s, z, d), "snrm2": misc.snrm2(s, d)}
+    Wc, lamc = misc.compute_scaling(s, z, None, d)
+    out.update({"lambda": lamc, "d": Wc.d,
+                "beta": torch.stack(Wc.beta), "v": torch.cat(Wc.v)})
+    for f in ("r", "rti"):
+        out[f + " " + f + "'"] = torch.cat([(a @ a.T).flatten()
+                                           for a in getattr(Wc, f)])
+    W = Wc if W is None else W
+    lam = lamc if lam is None else lam
+    for trans in "NT":
+        for inverse in "NI":
+            out[f"scale {trans}{inverse}"] = misc.scale(u, W, d, trans,
+                                                        inverse)
+    out["scale2"] = misc.scale2(lam, u, d)
+    out["scale2 inverse"] = misc.scale2(lam, u, d, inverse="I")
+    return out, Wc, lamc
+
+
+# compute_scaling's outputs at an optimum, where s and z are nearly
+# complementary: the q blocks' hyperbolic norms and the s blocks'
+# eigenvalues lose digits to cancellation, differently in the card's and
+# the CPU's summation order.  misc_on_card holds them there to 1e-6 and
+# prints how far a relative change of 1e-15 in s and z moves them on the
+# CPU alone; at the interior pair (s + e, z + e) every output is held to
+# 1e-10
+MISC_COND = ("lambda", "beta", "v", "r r'", "rti rti'")
+
+
+def cone_identity(dims, like):
+    """The identity e of the cone of `dims` (ones, (1, 0, ..), vec(I)) as
+    a vector like `like`."""
+    parts = [torch.ones(dims["l"])]
+    for m in dims["q"]:
+        parts.append(torch.eye(m)[0])
+    for m in dims["s"]:
+        parts.append(torch.eye(m).flatten())
+    return torch.cat(parts).to(like)
+
+
+def misc_agree(label, s, z, u, dev, tol_cond):
+    """misc_calls on (s, z, u) on `dev` against CPU tensors, on the card's
+    W: max|card-cpu|/max|cpu| of each output; all held to 1e-10, the
+    MISC_COND outputs to tol_cond -> those outputs' largest gap."""
+    from kvxopt_tpu_torch.cones import NTScaling
+    gpu, Wg, lamg = misc_calls(s.to(dev), z.to(dev), u.to(dev))
+    on_card(label, *(v for v in gpu.values() if torch.is_tensor(v)))
+    Wcpu = NTScaling(*(f.cpu() if torch.is_tensor(f)
+                       else tuple(a.cpu() for a in f) for f in Wg))
+    cpu, _, _ = misc_calls(s.cpu(), z.cpu(), u.cpu(), Wcpu, lamg.cpu())
+    errs = {k: rel_err(gpu[k], cpu[k]) for k in gpu}
+    print(f"{label} on the card against CPU tensors, max|card-cpu|/"
+          "max|cpu|: " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + f" (tol 1e-10; {', '.join(MISC_COND)} {tol_cond:g})")
+    check(all(e <= (tol_cond if k in MISC_COND else 1e-10)
+              for k, e in errs.items()), f"{label}: the card and the CPU "
+          "differ")
+    return max(errs[k] for k in MISC_COND)
+
+
+def scaling_sensitivity(s, z):
+    """compute_scaling on the CPU at (s, z) and at s and z each changed by
+    a relative 1e-15 of random sign: the largest max|change|/max|out| over
+    the MISC_COND outputs."""
+    g = torch.Generator().manual_seed(17)
+    s, z = s.cpu(), z.cpu()
+    sp, zp = (a * (1 + 1e-15 * torch.randn(a.shape, generator=g,
+                                           dtype=a.dtype).sign())
+              for a in (s, z))
+    a, _, _ = misc_calls(s, z, s)
+    b, _, _ = misc_calls(sp, zp, s)
+    return max(rel_err(b[k], a[k]) for k in MISC_COND)
+
+
+def misc_on_card(dev):
+    """Phase 16(b): misc.kkt_chol through coneqp (the H=P wrapper) against
+    kktsolver='chol' on lane 0 of phase 7's l+q+s problems, then misc's
+    functions on that solution's s and z on the card against CPU
+    tensors, on one scaling W."""
+    from kvxopt_tpu_torch import misc, solvers
+    P, q, G, h = lqs_problem(SEEDS[0])
+    f = misc.kkt_chol(G, LQS_DIMS, None)
+    t0 = time.perf_counter()
+    sm = solvers.coneqp(P, q, G, h, LQS_DIMS,
+                        kktsolver=lambda W, H=None, Df=None: f(W, H=P))
+    tm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = solvers.coneqp(P, q, G, h, LQS_DIMS, kktsolver="chol")
+    tc = time.perf_counter() - t0
+    on_card("misc coneqp", sm["x"], sm["s"], sm["z"])
+    x, xc = sm["x"].cpu().numpy(), sc["x"].cpu().numpy()
+    dx = np.linalg.norm(x - xc) / (1 + np.linalg.norm(xc))
+    print(f"misc.kkt_chol through coneqp: {sm['status']} in "
+          f"{sm['iterations']} iterations, {tm:.4f} s; kktsolver='chol': "
+          f"{sc['status']} in {sc['iterations']}, {tc:.4f} s; "
+          f"|x-x_chol|/(1+|x_chol|) {dx:.3e} (tol 1e-7)")
+    check(sm["status"] == sc["status"] == "optimal" and
+          sm["iterations"] == sc["iterations"],
+          "misc.kkt_chol: status or iterations differ from 'chol'")
+    check(dx <= 1e-7, "misc.kkt_chol: x differs from 'chol'")
+    s, z = sc["s"], sc["z"]
+    g = torch.Generator().manual_seed(16)
+    u = torch.randn(s.shape, generator=g, dtype=s.dtype)
+    e = cone_identity(LQS_DIMS, s)
+    misc_agree("misc at (s + e, z + e)", s + e, z + e, u, dev, 1e-10)
+    gap = misc_agree("misc at the optimum", s, z, u, dev, 1e-6)
+    sens = scaling_sensitivity(s, z)
+    print(f"misc at the optimum: {', '.join(MISC_COND)} move by {sens:.2e} "
+          f"on the CPU when s and z change by 1e-15 relative; the card's "
+          f"gap {gap:.2e} is {gap / max(sens, 1e-300):.3g} times that")
+
+
+def profile_option(dev):
+    """Phase 16(c): solvers.qp with options['profile'] on lane 0 of phase
+    3's problems writes one Chrome trace with CUDA kernel events; the same
+    call without the key writes nothing."""
+    from kvxopt_tpu_torch import solvers
+    P, q, G, h = large_problem(SEEDS[0])
+    with scratch_dir() as tmp:
+        sol = solvers.qp(P, q, G, h, options={"profile": tmp})
+        files = os.listdir(tmp)
+        check(len(files) == 1, f"profile: {len(files)} files, expected 1")
+        path = os.path.join(tmp, files[0])
+        with open(path) as fh:
+            tr = json.load(fh)
+        events = tr["traceEvents"] if isinstance(tr, dict) else tr
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        print(f"profile: qp {sol['status']} in {sol['iterations']} "
+              f"iterations wrote {files[0]}, {os.path.getsize(path)} bytes, "
+              f"{len(events)} events, {kernels} CUDA kernel events")
+        check(kernels > 0, "profile: the trace holds no CUDA kernel events")
+        plain = solvers.qp(P, q, G, h)
+        check(os.listdir(tmp) == files,
+              "profile: a call without the key wrote a file")
+        check(sol["status"] == plain["status"] == "optimal",
+              "profile: qp not optimal")
+
+
+def seq_misc(dev, x3, walls3):
+    """Phase 16, "seq and misc": (a) seq_driver, (b) misc_on_card, (c)
+    profile_option.  Returns (a)'s kernel launches."""
+    launches = seq_driver(dev, x3, walls3)
+    misc_on_card(dev)
+    profile_option(dev)
+    return launches
+
+
 def cpu_solve(name, threads):
     """In a worker process: the phase's problems on CPU tensors, the
     kernels' plain versions -> (x, iterations, status, seconds); x over
@@ -2463,16 +2839,16 @@ def main():
     scaling_rows(dev)
     stamp("phase 2")
 
-    gpu, _, _ = solve_phase("slice", dev, *slice_data("slice"))
+    gpu, _, _, walls3 = solve_phase("slice", dev, *slice_data("slice"))
     stamp("phase 3")
-    gpu_eq, _, shapes = solve_phase("slice l+q+eq", dev,
+    gpu_eq, _, shapes, _ = solve_phase("slice l+q+eq", dev,
                                     *slice_data("slice l+q+eq"))
     check(shapes.get(("K1", P_EQ, 0), 0) > 0,
           "K1 never factored the Schur complement (n=p)")
     check(shapes.get(("K2", N, P_EQ), 0) > 0,
           "K2 never ran with k=p right-hand sides")
     stamp("phase 5")
-    gpu_s, launches, _ = solve_phase("slice l+q+s", dev,
+    gpu_s, launches, _, _ = solve_phase("slice l+q+s", dev,
                                      *slice_data("slice l+q+s"))
     nan_check(dev)
     stamp("phase 7")
@@ -2490,6 +2866,8 @@ def main():
     stamp("phase 14")
     gpu_md = modeling(dev)
     stamp("phase 15")
+    seq_launches = seq_misc(dev, gpu[0], walls3)
+    stamp("phase 16")
     for name, g in (("slice", gpu), ("slice l+q+eq", gpu_eq),
                     ("slice l+q+s", gpu_s), ("lp batch", gpu_lp),
                     ("conelp l+q+s", gpu_lqs)):
@@ -2517,7 +2895,8 @@ def main():
          "max_abs_err": rows[k]["err"], "ms": rows[k]["ms"],
          "plain_ms": rows[k]["plain"], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": rows[k]["lib"],
-         "launches_phase14": sparse_launches[k]}
+         "launches_phase14": sparse_launches[k],
+         "launches_phase16": seq_launches[k]}
         for k in replaces]}))
     print(sh(["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]))

@@ -7,8 +7,14 @@ orderings, sparse LDL' and LU) with g++ at first use (native/__init__.py).
 
 The facade is kvxopt_tpu's (reference src/python/__init__.py):
 matrix/spmatrix/sparse/spdiag, the elementwise math, the random
-generators with seed control (normal, uniform, setseed, getseed; gsl.py)
-and min/max/mul/div.  The modeling layer is kvxopt_tpu_torch.modeling.
+generators with seed control (normal, uniform, setseed, getseed; gsl.py),
+min/max/mul/div and __version__.  The modeling layer is
+kvxopt_tpu_torch.modeling.  Every module of kvxopt_tpu has its
+counterpart here under the same path, among them the host facades blas,
+lapack and fftw (numpy/scipy on the host, as in the JAX package), misc
+and misc_solvers (the cone algebra and KKT factors on single vectors),
+info and _version; the exceptions are parallel's sharded, arrow and
+dist_chol (ROADMAP.md, Queue 1 item 9).
 """
 
 import numpy as _np
@@ -23,6 +29,7 @@ from .base import (  # noqa: F401
     gemv, gemm, syrk, symv, axpy)
 from .gsl import normal, uniform, setseed, getseed  # noqa: F401
 from . import printing  # noqa: F401
+from ._version import __version__  # noqa: F401
 
 _pymin, _pymax = min, max
 

@@ -109,6 +109,25 @@ def scaling_instance(dims, W, lane=0):
         rti=_per_block(sgroups, W.rti, len(dims.s), pick))
 
 
+def scaling_batch(dims, W, device):
+    """scaling_instance's inverse: one instance in the JAX package's
+    single-instance layout (fields tensors or arrays) -> the port's
+    NTScaling as a batch of one on `device`."""
+    dims = dims_from(dims)
+    qgroups, sgroups = block_groups(dims)
+
+    def t(a):
+        return torch.as_tensor(a if isinstance(a, torch.Tensor)
+                               else np.array(a), device=device)
+
+    def per_group(groups, fields):
+        return tuple(torch.stack([t(fields[k]) for k in g.idxs])[None]
+                     for g in groups)
+    return NTScaling(d=t(W.d)[None], beta=per_group(qgroups, W.beta),
+                     v=per_group(qgroups, W.v), r=per_group(sgroups, W.r),
+                     rti=per_group(sgroups, W.rti))
+
+
 def state_to_numpy(out):
     """The port's (x, y, s, z, iterations, status, metrics) -> numpy, in
     the JAX package's layout (metrics a Metrics of arrays)."""

@@ -173,9 +173,14 @@ def cond_any(pred, true_fn, false_fn, *ops):
     """Per-lane select between two branches where the (expensive) true
     branch runs only if some lane needs it: the batched form of
     `lax.cond(pred, ...)` that kvxopt_tpu.kkt.cond_any gives a vmapped
-    trace.  pred is (B,) bool."""
+    trace.  pred is (B,) bool.  Where every lane takes the true branch,
+    the false one does not run, as under a real lax.cond (a lane of
+    batched_qp_solver_seq)."""
+    n_true = int(pred.sum())
+    if n_true == pred.numel():
+        return true_fn(*ops)
     out_f = false_fn(*ops)
-    if not bool(pred.any()):
+    if not n_true:
         return out_f
     out_t = true_fn(*ops)
     return torch.where(pred.reshape((-1,) + (1,) * (out_t.ndim - 1)),

@@ -4,7 +4,8 @@ Counterpart of kvxopt_tpu/parallel/batch.py.  The JAX package vmapped a
 single-instance solve; here the solve itself carries the batch
 dimension, with a per-lane status mask in place of vmap's lockstep.
 Both IPMs are here: the cone QP (make_qp_solver) and the self-dual
-cone LP (make_lp_solver).
+cone LP (make_lp_solver), with the two-pass mixed driver and the
+sequential one (batched_qp_solver_seq).
 Mesh sharding and the host-dispatch wrapper are not ported (ROADMAP.md,
 Queue 1).
 """
@@ -178,4 +179,40 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
                 type(out[6])(*map(merge, out[6], sout[6])))
 
     solve.stats = {"pass1_status": [], "pass2_lanes": 0}
+    return solve
+
+
+def batched_qp_solver_seq(dims, kktsolver="chol2_mixed", options=None,
+                          with_eq=False, group=1):
+    """Sequential batch driver: solve(P, q, G, h[, A, b]) solves the
+    batch `group` lanes at a time, one slice after the other, and
+    returns the state tuple (x, y, s, z, iterations, status, metrics)
+    of batched_qp_solver.
+
+    The JAX package's lax.map of the single-instance solve: each slice
+    keeps its own trip counts, and the per-lane f64-factor fallback of
+    plain 'chol2_mixed' (kkt.cond_any) runs only where a lane of the
+    slice needs it, so no second pass re-solves failed lanes.  A lane
+    that ends 'singular' stays so.  With group > 1 the exact-split
+    (ozaki) refinement matvecs default to on, as in the JAX function.
+    Factor refinement follows options (None: config.factor_refine): the
+    driver is not vmapped, so the "vmap" sentinel does not apply.  The
+    batch must divide into groups."""
+    if group > 1:
+        o = _options(options)
+        if o.ozaki is None:
+            options = o._replace(ozaki=True)
+    solve_slice = make_qp_solver(dims, kktsolver, options, with_eq)
+
+    def solve(P, q, G, h, *ab):
+        args = _tensors(P, q, G, h, *ab)
+        B = args[1].shape[0]
+        if B % group:
+            raise ValueError(f"batch {B} not divisible by group {group}")
+        outs = [solve_slice(*(a[i:i + group] for a in args))
+                for i in range(0, B, group)]
+        return (*(torch.cat(f) for f in list(zip(*outs))[:6]),
+                type(outs[0][6])(*(torch.cat(f) for f in
+                                   zip(*(o[6] for o in outs)))))
+
     return solve

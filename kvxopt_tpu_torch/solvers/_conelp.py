@@ -34,7 +34,7 @@ from ..cones import ConeDims
 from .coneprog import (
     RUNNING, OPTIMAL, UNKNOWN, PRIMAL_INFEASIBLE, DUAL_INFEASIBLE, SINGULAR,
     _STATUS_STR, STEP, EXPON, Options, _asarray, _constraints,
-    _front_end_ops, _numel, _refuse_vector_spaces, _relgap,
+    _front_end_ops, _numel, _profile_ctx, _refuse_vector_spaces, _relgap,
     _resolve_options, _solve_device, _where)
 
 
@@ -55,11 +55,20 @@ def conelp(c, G, h, dims=None, A=None, b=None, primalstart=None,
     Gx + s = 0, Ax = 0, s >= 0.  Vectors are tensors on the solve's
     device.  G and A may be operators with a custom kktsolver, as in
     coneqp; primalstart {'x', 's'} and dualstart {'y', 'z'} warm-start
-    the iteration."""
+    the iteration.  options['profile'] = <directory> writes the solve's
+    torch.profiler trace there (coneprog._profile_ctx)."""
     _refuse_vector_spaces(xnewcopy, xdot, xscal, xaxpy, ynewcopy, ydot,
                           yscal, yaxpy)
-    o, dtype = _resolve_options(options)
     dev = _solve_device(c, h, G, A, b)
+    with _profile_ctx(options, dev):
+        return _conelp_impl(c, G, h, dims, A, b, primalstart, dualstart,
+                            kktsolver, options, dev)
+
+
+def _conelp_impl(c, G, h, dims, A, b, primalstart, dualstart, kktsolver,
+                 options, dev):
+    """conelp on the device `dev`."""
+    o, dtype = _resolve_options(options)
     c = _asarray(c, dtype, dev, name="c")
     n = c.shape[0]
     dims, h, b, Ga, Aa = _constraints(G, h, dims, A, b, n, dtype, dev)

@@ -12,14 +12,19 @@ batch of one, and return the reference's result dictionary.  Array-like
 inputs go to config.default_device (the card); tensors keep their own
 device.  The vector-space operations of custom x and y spaces (VecOps)
 live here; cvxprog's cpl and cp take them, coneqp and conelp do not
-yet.  Executor dispatch and options['profile'] are not ported yet
-(ROADMAP.md, Queue 1).  The `solver=` routes (osqp, gurobi, mosek) live
-beside the conelp ones in _conelp.py.
+yet.  options['profile'] = <directory> runs a coneqp or conelp solve
+under torch.profiler and writes its Chrome trace there
+(_profile_ctx).  Executor dispatch is not ported yet (ROADMAP.md, Queue
+1).  The `solver=` routes (osqp, gurobi, mosek) live beside the conelp
+ones in _conelp.py.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
+import tempfile
 from typing import NamedTuple
 
 import numpy as np
@@ -74,14 +79,19 @@ class Options(NamedTuple):
         return self._replace(refinement=auto)
 
 
-def _resolve_options(options):
-    """(Options, dtype): the global solvers.options with the per-call
-    options over them; the 'dtype' key picks the solve's dtype (default
-    config.default_dtype)."""
+def _merged_options(options):
+    """The global solvers.options with the per-call options over them."""
     from . import options as global_options
     merged = dict(global_options)
     if options:
         merged.update(options)
+    return merged
+
+
+def _resolve_options(options):
+    """(Options, dtype) of _merged_options(options); the 'dtype' key picks
+    the solve's dtype (default config.default_dtype)."""
+    merged = _merged_options(options)
     o = Options(
         maxiters=int(merged.get("maxiters", 100)),
         abstol=float(merged.get("abstol", 1e-7)),
@@ -129,6 +139,34 @@ def _asarray(x, dtype, device, shape=None, name="argument"):
         raise ValueError(f"{name} has shape {tuple(a.shape)}, expected "
                          f"{tuple(shape)}")
     return a
+
+
+def _profile_ctx(options, device):
+    """Opt-in torch.profiler capture of a whole solve: with
+    options['profile'] = <directory> (per call or in solvers.options),
+    the solve runs under torch.profiler, tracing the host's operators
+    and, where `device` is the card, its kernels, and on exit writes one
+    Chrome trace under that directory, kvxopt_<pid>_<unique>.trace.json,
+    so that calls do not overwrite each other.  Without the key no
+    profiler is created."""
+    pdir = _merged_options(options).get("profile")
+    if not pdir:
+        return contextlib.nullcontext()
+    return _profiled(str(pdir), torch.device(device))
+
+
+@contextlib.contextmanager
+def _profiled(pdir, device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    os.makedirs(pdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    fd, path = tempfile.mkstemp(prefix=f"kvxopt_{os.getpid()}_",
+                                suffix=".trace.json", dir=pdir)
+    os.close(fd)
+    prof.export_chrome_trace(path)
 
 
 def _numel(x):
@@ -560,11 +598,19 @@ def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None, initvals=None,
     kktsolver(W) -> solve(bx, by, bz): W holds d, and beta, v, r and rti
     one entry per q or s block (convert.scaling_instance).  initvals
     may be partial: x and y default to zero, s and z to the cone's
-    identity."""
+    identity.  options['profile'] = <directory> writes the solve's
+    torch.profiler trace there (_profile_ctx)."""
     _refuse_vector_spaces(xnewcopy, xdot, xscal, xaxpy, ynewcopy, ydot,
                           yscal, yaxpy)
-    o, dtype = _resolve_options(options)
     dev = _solve_device(q, h, G, P, A, b)
+    with _profile_ctx(options, dev):
+        return _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver,
+                            options, dev)
+
+
+def _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver, options, dev):
+    """coneqp on the device `dev`."""
+    o, dtype = _resolve_options(options)
     q = _asarray(q, dtype, dev, name="q")
     n = q.shape[0]
     if G is None and dims is None:
