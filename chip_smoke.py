@@ -10,9 +10,11 @@ with numpy data and no device named; the nonlinear front ends
 (cholmod's tile-supernodal factorization on the card, the tile and dense
 routes of a scenario batch, a sparse-KKT LP); and the modeling layer
 (op.solve on PWL models, MPS I/O) with the solver= routes (osqp's ADMM
-on the card, glpk, dsdp); and the sequential batch driver with
+on the card, glpk, dsdp); the sequential batch driver with
 chol2_mixed's per-lane f64 fallback, misc on the card and
-options['profile'].
+options['profile']; and custom vector spaces in coneqp/conelp with the
+multi-device layer over torch.distributed (sharded_kkt_solver,
+dist_cholesky, arrow_kkt_factor, mesh=) in spawned worlds on the card.
 
     python3 chip_smoke.py
 
@@ -162,7 +164,24 @@ Phases (any failure exits non-zero and prints no result):
      (1e-6), printed beside their change on the CPU under a 1e-15
      relative change of s and z; (c) solvers.qp on phase 3's lane 0 with
      options['profile']: one Chrome trace that parses and holds CUDA
-     kernel events; the call without the key writes nothing.
+     kernel events; the call without the key writes nothing;
+ 17. "custom spaces and the multi-device layer": (a) coneqp on phase 7's
+     lane 0 and conelp on lqs_lp(0) with x = {'a': x[:256], 'b': x[256:]},
+     P and G operators and a kktsolver over misc.kkt_chol, and coneqp on
+     phase 5's lane 0 with y = {'u', 'w'} (p split in two) as well: each
+     the dense call's status, iterations within 1, x within 1e-6 (1 +
+     |x|); (b)-(e) in spawned worlds (parallel.spawn) of 1 rank over
+     NCCL and of 2 ranks over gloo, both on cuda:0: (b) coneqp through
+     sharded_kkt_solver on phase 7's lane 0, twice (cold and warm), at
+     world 2 also with dist_nb=128, against its dense chol solve, as
+     (a); (c) dist_cholesky at n=2048, nb=256 against
+     torch.linalg.cholesky, 1e-10 relative on L; (d) arrow_kkt_factor
+     on B=16 blocks of nb=384 bordered by nc=64, over the mesh and (in
+     this process) without one, the arrow system's residual below 1e-10
+     relative; (e) batched_qp_solver_mixed(mesh=) on phase 3's problems,
+     at world 2 each rank on its 8 lanes: phase 3's status and
+     iterations, x within 1e-12 (1 + |x|), K1-K3 launched (world 1's
+     counts are launches_phase17); each part's wall.
 The CPU solves of phases 4, 6, 10 and 11-15 run in three worker
 processes (spawned after the build, at lower priority, a few CPU threads
 each; phase 10's first, then the short ones of 11-15, then phases 4
@@ -176,8 +195,9 @@ Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
 and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
 synchronizing calls per IPM iteration.  The line before the card's line
 is the kernels line: per kernel its launches on the main path (phase 7;
-K4: phase 2), in phase 14(b) (launches_phase14) and in phase 16(a)'s
-group=1 run (launches_phase16), its error against
+K4: phase 2), in phase 14(b) (launches_phase14), in phase 16(a)'s
+group=1 run (launches_phase16) and in phase 17(e) (launches_phase17),
+its error against
 the plain version, its time, the plain version's and one PyTorch call's
 (median of 20), and its bound from the bytes and flops of the same
 shape.  The last line is
@@ -215,6 +235,12 @@ OSQP_PROFILED = 200  # phase 15(c): ADMM iterations of the profiled call
 N_SP, NNZ_SP, BAND_SP = 2003, 42943, 60
 B_SP, NPAD_SP, TS_SP = 16, 2048, 128
 N_SPZ, NNZ_SPZ = 300, 4000
+# phase 17: dist_cholesky's order and block (the KVX_DRYRUN_SCALE=1 size
+# of __graft_entry__.py), the sharded solve's distributed block, the
+# arrow blocks (phase 11's K_GRID) and their border, each world's time
+N_DC, NB_DC, NB_SH = 2048, 256, 128
+B_AR, NB_AR, NC_AR = 16, K_GRID, 64
+WORLD_S = 300.0
 T0 = time.perf_counter()
 POOL = None     # the worker processes of the CPU solves
 
@@ -2754,6 +2780,271 @@ def seq_misc(dev, x3, walls3):
     return launches
 
 
+def split(u, k, keys=("a", "b")):
+    """A vector as a dict of its first k entries and the rest."""
+    return {keys[0]: u[:k], keys[1]: u[k:]}
+
+
+def join(u, keys=("a", "b")):
+    return torch.cat([u[k] for k in keys])
+
+
+def same_as_dense(name, sol, ref, x, xref):
+    """Phase 17's gate: the dense call's status, iterations within 1, x
+    within 1e-6 (1 + |x|)."""
+    dx = float(torch.linalg.vector_norm(x - xref) /
+               (1 + torch.linalg.vector_norm(xref)))
+    print(f"{name}: {sol['status']} in {sol['iterations']} iterations "
+          f"(dense {ref['status']} in {ref['iterations']}), "
+          f"|x-x_dense|/(1+|x_dense|) {dx:.3e} (tol 1e-6)", flush=True)
+    check(sol["status"] == ref["status"] == "optimal",
+          f"{name}: status {sol['status']}, dense {ref['status']}")
+    check(abs(sol["iterations"] - ref["iterations"]) <= 1,
+          f"{name}: iterations differ from the dense call's by more than 1")
+    check(dx <= 1e-6, f"{name}: x differs from the dense call's")
+
+
+def custom_spaces(dev):
+    """Phase 17(a): coneqp and conelp with custom x spaces (x = {'a': the
+    first half, 'b': the rest}, P and G operators on the card, a
+    kktsolver over misc's dense chol factor) on phase 7's lane 0 and on
+    lqs_lp(0), and coneqp with custom x and y spaces (y split likewise,
+    A an operator, b a dict) on phase 5's lane 0; each against the same
+    problem's dense call.  Returns phase 7 lane 0's dense x (numpy) and
+    iterations."""
+    from kvxopt_tpu_torch import misc, solvers
+
+    def T(a):
+        return torch.as_tensor(a, device=dev)
+
+    def kktsolver(factor, H=None, y=False):
+        def kkt(W, H_=None, Df=None):
+            solve = factor(W, H=H)
+
+            def s(bx, by, bz):
+                ux, uy, uz = solve(join(bx), join(by, "uw") if y else by, bz)
+                return (split(ux, N // 2), split(uy, P_EQ // 2, "uw") if y
+                        else uy, uz)
+            return s
+        return kkt
+
+    def G_op(Gt):
+        def G(u, trans=False):
+            return split(Gt.T @ u, N // 2) if trans else Gt @ join(u)
+        return G
+
+    def P_op(Pt):
+        return lambda u: split(Pt @ join(u), N // 2)
+
+    walls = {}
+    P, q, G, h = lqs_problem(SEEDS[0])
+    Pt, Gt = T(P), T(G)
+    t0 = time.perf_counter()
+    sol = solvers.coneqp(P_op(Pt), split(T(q), N // 2), G_op(Gt), h,
+                         LQS_DIMS, kktsolver=kktsolver(
+                             misc.kkt_chol(Gt, LQS_DIMS, None), H=Pt),
+                         xnewcopy=dict)
+    walls["coneqp x"] = time.perf_counter() - t0
+    ref = solvers.coneqp(P, q, G, h, LQS_DIMS)
+    same_as_dense("custom coneqp l+q+s", sol, ref, join(sol["x"]), ref["x"])
+    xlqs, it7 = ref["x"], ref["iterations"]
+
+    c, G, h = lqs_lp(0)
+    Gt = T(G)
+    t0 = time.perf_counter()
+    sol = solvers.conelp(split(T(c), N // 2), G_op(Gt), h, LQS_DIMS,
+                         kktsolver=kktsolver(misc.kkt_chol(Gt, LQS_DIMS,
+                                                           None)),
+                         xnewcopy=dict)
+    walls["conelp x"] = time.perf_counter() - t0
+    ref = solvers.conelp(c, G, h, LQS_DIMS, kktsolver="chol")
+    same_as_dense("custom conelp l+q+s", sol, ref, join(sol["x"]), ref["x"])
+
+    P, q, G, h, A, b = lqeq_problem(SEEDS[0])
+    dims = {"l": L_EQ, "q": list(Q_EQ)}
+    Pt, Gt, At = T(P), T(G), T(A)
+
+    def A_op(u, trans=False):
+        if trans:
+            return split(At.T @ join(u, "uw"), N // 2)
+        return split(At @ join(u), P_EQ // 2, "uw")
+    t0 = time.perf_counter()
+    sol = solvers.coneqp(
+        P_op(Pt), split(T(q), N // 2), G_op(Gt), h, dims, A_op,
+        split(T(b), P_EQ // 2, "uw"), kktsolver=kktsolver(
+            misc.kkt_chol(Gt, dims, At), H=Pt, y=True), xnewcopy=dict,
+        ydot=lambda u, v: torch.dot(u["u"], v["u"]) + torch.dot(u["w"],
+                                                               v["w"]))
+    walls["coneqp x, y"] = time.perf_counter() - t0
+    ref = solvers.coneqp(P, q, G, h, dims, A, b)
+    same_as_dense("custom coneqp l+q+eq (x and y)", sol, ref, join(sol["x"]),
+                  ref["x"])
+    dy = float(torch.linalg.vector_norm(join(sol["y"], "uw") - ref["y"]) /
+               (1 + torch.linalg.vector_norm(ref["y"])))
+    print(f"custom coneqp l+q+eq: |y-y_dense|/(1+|y_dense|) {dy:.3e} "
+          "(tol 1e-6)")
+    check(dy <= 1e-6, "custom coneqp l+q+eq: y differs from the dense call's")
+    print("phase 17(a) walls: " + ", ".join(f"{k} {v:.4f} s"
+                                            for k, v in walls.items()))
+    return xlqs.cpu().numpy(), it7
+
+
+def arrow_data(seed=17, Bn=B_AR, nb=NB_AR, nc=NC_AR):
+    """Phase 17(d): B SPD blocks D_i = M M' + nb I, borders C_i standard
+    normal, corner E = (nc + nb) I, and the right-hand sides (numpy)."""
+    rng = np.random.default_rng(seed)
+    Mx = rng.standard_normal((Bn, nb, nb))
+    D = Mx @ Mx.transpose(0, 2, 1) + nb * np.eye(nb)
+    C = rng.standard_normal((Bn, nb, nc))
+    E = (nc + nb) * np.eye(nc)
+    return D, C, E, rng.standard_normal((Bn, nb)), rng.standard_normal(nc)
+
+
+def arrow_residual(D, C, E, bblk, bbrd, xblk, xbrd):
+    """|K x - b| / |b| of the whole arrow system, on the tensors' device."""
+    rb = (torch.einsum("bij,bj->bi", D, xblk) + C @ xbrd - bblk)
+    rc = torch.einsum("bij,bi->j", C, xblk) + E @ xbrd - bbrd
+    nb_ = torch.sqrt(torch.sum(bblk ** 2) + torch.sum(bbrd ** 2))
+    return float(torch.sqrt(torch.sum(rb ** 2) + torch.sum(rc ** 2)) / nb_)
+
+
+def timed(walls, name, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    return out
+
+
+def phase17_rank(rank, world, dev):
+    """Phase 17(b)-(e) in one rank of a world of `world` ranks on the card
+    (spawned): (b) coneqp through sharded_kkt_solver on phase 7's lane 0,
+    at world 2 also with dist_nb=NB_SH; (c) dist_cholesky at N_DC, NB_DC
+    against torch.linalg.cholesky; (d) arrow_kkt_factor over the mesh;
+    (e) batched_qp_solver_mixed(mesh=) on phase 3's problems, each rank
+    solving its slice of the batch, K1-K3's counts set to 0 just before
+    and read just after.  Returns rank 0's results and walls (numpy and
+    numbers)."""
+    from kvxopt_tpu_torch import ConeDims, config, solvers
+    from kvxopt_tpu_torch.convert import problem_to_torch, state_to_numpy
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch.parallel import (
+        arrow_kkt_factor, batched_qp_solver_mixed, cyclic_unpack,
+        dist_cholesky, make_mesh, sharded_kkt_solver)
+    from kvxopt_tpu_torch.parallel.dist_chol import gather_stack
+    config.set_default_device(dev)
+    mesh = make_mesh(world, ("kkt",))
+    out, walls = {}, {}
+
+    P, q, G, h = lqs_problem(SEEDS[0])
+    Gt, Pt = (torch.as_tensor(a, device=dev) for a in (G, P))
+    for nb in (0, NB_SH) if world > 1 else (0,):
+        f = sharded_kkt_solver(mesh, "kkt", LQS_DIMS, Gt, Pmat=Pt,
+                               dist_nb=nb)
+        for run in ("cold", "warm"):   # the rank's first call, then again
+            sol = timed(walls, f"(b) sharded coneqp dist_nb={nb} {run}",
+                        lambda: solvers.coneqp(P, q, G, h, LQS_DIMS,
+                                               kktsolver=f))
+        out[f"sharded {nb}"] = (sol["status"], sol["iterations"],
+                                sol["x"].cpu().numpy())
+
+    rng = np.random.default_rng(5)
+    A5 = torch.as_tensor(rng.standard_normal((N_DC, N_DC)) / np.sqrt(N_DC),
+                         device=dev)
+    K = A5 @ A5.T + torch.eye(N_DC, dtype=A5.dtype, device=dev)
+    Ll, _ = timed(walls, "(c) dist_cholesky",
+                  lambda: dist_cholesky(mesh, "kkt", K, NB_DC))
+    L = cyclic_unpack(gather_stack(mesh, "kkt", Ll), NB_DC, world)
+    Lref = torch.linalg.cholesky(K)
+    out["dist_cholesky"] = float((L - Lref).abs().max() / Lref.abs().max())
+
+    D, C, E, bblk, bbrd = (torch.as_tensor(a, device=dev)
+                           for a in arrow_data())
+    solve, _ = timed(walls, "(d) arrow factor",
+                     lambda: arrow_kkt_factor(D, C, E, mesh=mesh))
+    xblk, xbrd = timed(walls, "(d) arrow solve", lambda: solve(bblk, bbrd))
+    out["arrow"] = arrow_residual(D, C, E, bblk, bbrd, xblk, xbrd)
+
+    dims, data = slice_data("slice")
+    args = problem_to_torch(*data, device=dev)
+    solve = batched_qp_solver_mixed(dims, mesh=make_mesh(world))
+    torch.cuda.synchronize()
+    cl.reset_launches()
+    res = timed(walls, "(e) batched_qp_solver_mixed(mesh=)",
+                lambda: solve(*args))
+    out["launches"] = dict(cl.LAUNCHES)
+    x, _, _, _, it, status, _ = state_to_numpy(res)
+    out["mixed"] = (x, it, status)
+    out["walls"] = walls
+    return out if rank == 0 else None
+
+
+def multi_device(dev, gpu3):
+    """Phase 17, "custom spaces and the multi-device layer": (a)
+    custom_spaces; phase17_rank's (b)-(e) at world 1 over NCCL and at
+    world 2 over gloo, both ranks on cuda:0; (d) also without a mesh in
+    this process.  (b) is held to the dense chol solve of phase 7's lane
+    0 as (a) is, (c) to 1e-10 relative on L, (d) to 1e-10 on the
+    residual, (e) to phase 3's lanes (gpu3): status, iterations, x within
+    1e-12 (1 + |x|).  Returns (e)'s kernel launches at world 1."""
+    from kvxopt_tpu_torch.parallel import arrow_kkt_factor, spawn
+    x7, it7 = custom_spaces(dev)
+    stamp("phase 17(a)")
+    D, C, E, bblk, bbrd = (torch.as_tensor(a, device=dev)
+                           for a in arrow_data())
+    walls = {}
+    solve, _ = timed(walls, "factor", lambda: arrow_kkt_factor(D, C, E))
+    xb, xc = timed(walls, "solve", lambda: solve(bblk, bbrd))
+    r = arrow_residual(D, C, E, bblk, bbrd, xb, xc)
+    print(f"(d) arrow without a mesh, B={B_AR} nb={NB_AR} nc={NC_AR}: "
+          f"residual {r:.3e} (tol 1e-10), factor {walls['factor']:.4f} s, "
+          f"solve {walls['solve']:.4f} s")
+    check(r < 1e-10, "(d) arrow without a mesh: residual too large")
+    launches = None
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        name = f"world {world} ({backend}, cuda:0)"
+        t0 = time.perf_counter()
+        try:
+            out = spawn(phase17_rank, world, backend, "cuda:0",
+                        timeout=WORLD_S)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase 17 {name}: {e}")
+        print(f"phase 17 {name}: {time.perf_counter() - t0:.1f} s with the "
+              "ranks' start; " + ", ".join(
+                  f"{k} {v:.4f} s" for k, v in out["walls"].items()),
+              flush=True)
+        for key in sorted(k for k in out if k.startswith("sharded")):
+            st, it, x = out[key]
+            dx = np.linalg.norm(x - x7) / (1 + np.linalg.norm(x7))
+            print(f"(b) {name} coneqp through sharded_kkt_solver "
+                  f"dist_nb={key.split()[1]}: {st} in {it} iterations, "
+                  f"|x-x_chol|/(1+|x_chol|) {dx:.3e} (tol 1e-6)")
+            check(st == "optimal" and abs(it - it7) <= 1 and dx <= 1e-6,
+                  f"(b) {name} {key}: differs from the dense chol solve")
+        print(f"(c) {name} dist_cholesky n={N_DC} nb={NB_DC}: max|L-L_ref|"
+              f"/max|L_ref| {out['dist_cholesky']:.3e} (tol 1e-10); (d) "
+              f"arrow over the mesh: residual {out['arrow']:.3e} "
+              "(tol 1e-10)")
+        check(out["dist_cholesky"] <= 1e-10, f"(c) {name}: L differs")
+        check(out["arrow"] < 1e-10, f"(d) {name}: residual too large")
+        x, it, status = out["mixed"]
+        x3, it3, st3 = gpu3
+        dx = (np.linalg.norm(x - x3, axis=1) /
+              (1 + np.linalg.norm(x3, axis=1))).max()
+        print(f"(e) {name} batched_qp_solver_mixed(mesh=): status "
+              f"{status.tolist()}, iterations {it.tolist()}, max "
+              f"|x-x_phase3|/(1+|x_phase3|) {dx:.3e} (tol 1e-12), rank 0's "
+              f"launches {out['launches']}", flush=True)
+        check((status == st3).all() and (it == it3).all() and
+              dx <= 1e-12, f"(e) {name}: differs from phase 3's lanes")
+        check(all(out["launches"][k] > 0 for k in ("K1", "K2", "K3")),
+              f"(e) {name}: a kernel of the path never launched")
+        if world == 1:   # the kernels line's count: the world of one
+            launches = out["launches"]
+    return launches
+
+
 def cpu_solve(name, threads):
     """In a worker process: the phase's problems on CPU tensors, the
     kernels' plain versions -> (x, iterations, status, seconds); x over
@@ -2868,6 +3159,8 @@ def main():
     stamp("phase 15")
     seq_launches = seq_misc(dev, gpu[0], walls3)
     stamp("phase 16")
+    mesh_launches = multi_device(dev, gpu)
+    stamp("phase 17")
     for name, g in (("slice", gpu), ("slice l+q+eq", gpu_eq),
                     ("slice l+q+s", gpu_s), ("lp batch", gpu_lp),
                     ("conelp l+q+s", gpu_lqs)):
@@ -2896,7 +3189,8 @@ def main():
          "plain_ms": rows[k]["plain"], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": rows[k]["lib"],
          "launches_phase14": sparse_launches[k],
-         "launches_phase16": seq_launches[k]}
+         "launches_phase16": seq_launches[k],
+         "launches_phase17": mesh_launches.get(k, 0)}
         for k in replaces]}))
     print(sh(["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]))

@@ -13,8 +13,8 @@ kvxopt_tpu_torch.modeling.  Every module of kvxopt_tpu has its
 counterpart here under the same path, among them the host facades blas,
 lapack and fftw (numpy/scipy on the host, as in the JAX package), misc
 and misc_solvers (the cone algebra and KKT factors on single vectors),
-info and _version; the exceptions are parallel's sharded, arrow and
-dist_chol (ROADMAP.md, Queue 1 item 9).
+info and _version, and parallel's multi-device modules over
+torch.distributed (make_mesh, spawn, sharded, arrow, dist_chol).
 """
 
 import numpy as _np

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from .cones import ConeDims, NTScaling, block_groups
-from .solvers.coneprog import Metrics, Options
+from .solvers.coneprog import Metrics, Options, _tree_map
 
 
 def dims_from(obj) -> ConeDims:
@@ -40,6 +40,21 @@ def problem_to_torch(*arrays, device="cuda", dtype=torch.float64):
     names another (where there is no card, that raises)."""
     return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
                  for a in arrays)
+
+
+def tree_from_numpy(u, device="cuda", dtype=torch.float64):
+    """An element of a custom vector space in the JAX package's form (a
+    pytree: dicts, lists and tuples, nested, of arrays; None an empty
+    node) -> the port's: the same structure, each leaf a tensor of
+    `dtype` on `device` (the card unless the caller names another).
+    coneprog._tree_leaves lists the leaves in jax.tree_util's order."""
+    return _tree_map(lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
+                                               device=device), u)
+
+
+def tree_to_numpy(u):
+    """tree_from_numpy's inverse: the same structure with numpy leaves."""
+    return _tree_map(lambda a: a.detach().cpu().numpy(), u)
 
 
 def scaling_from_jax(dims, d, beta, v, r=(), rti=(), device="cuda",

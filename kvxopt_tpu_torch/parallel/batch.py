@@ -5,9 +5,10 @@ single-instance solve; here the solve itself carries the batch
 dimension, with a per-lane status mask in place of vmap's lockstep.
 Both IPMs are here: the cone QP (make_qp_solver) and the self-dual
 cone LP (make_lp_solver), with the two-pass mixed driver and the
-sequential one (batched_qp_solver_seq).
-Mesh sharding and the host-dispatch wrapper are not ported (ROADMAP.md,
-Queue 1).
+sequential one (batched_qp_solver_seq).  With mesh= the batch drivers
+deal the batch over the mesh's 'batch' axis (mesh.py): each rank solves
+its slice on its device and every rank gets the whole batch back.  The
+host-dispatch wrapper is not ported (ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from .. import kkt
 from ..cones import ConeDims
 from ..solvers._conelp import _conelp_core
 from ..solvers.coneprog import (OPTIMAL, Options, _coneqp_core, _matrix_ops,
-                                _solve_device)
+                                _solve_device, _tree_map)
 
 
 def _options(options):
@@ -48,10 +49,24 @@ def _cast(lead, mats, A, b):
     return mats, A, b
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding is not ported yet "
-                                  "(ROADMAP.md, Queue 1)")
+def _on_mesh(solve, mesh):
+    """solve(*args) over the 'batch' axis of `mesh` (None: solve itself):
+    each rank, called with the whole batch, solves its consecutive slice
+    of it (the axis's rank count must divide B), and the results are
+    gathered, so every rank returns the whole batch, lane by lane as
+    solve gives it.  The JAX package's pjit over P('batch')."""
+    if mesh is None:
+        return solve
+    from .mesh import Axis
+    ax = Axis(mesh, "batch")
+
+    def sharded(*args):
+        args = _tensors(*args)
+        B = args[0].shape[0]
+        mine = ax.part(B)
+        out = solve(*(a[mine] for a in args))
+        return _tree_map(lambda t: ax.gather(t, B), out)
+    return sharded
 
 
 def make_qp_solver(dims, kktsolver=None, options=None, with_eq=False):
@@ -131,15 +146,17 @@ def _vmap_facref(options):
 
 def batched_qp_solver(dims, kktsolver=None, options=None, mesh=None,
                       with_eq=False):
-    """solve(P[B], q[B], G[B], h[B][, A[B], b[B]]) -> batched state."""
-    _no_mesh(mesh)
-    return make_qp_solver(dims, kktsolver, _vmap_facref(options), with_eq)
+    """solve(P[B], q[B], G[B], h[B][, A[B], b[B]]) -> batched state;
+    with `mesh`, dealt over its 'batch' axis (_on_mesh)."""
+    return _on_mesh(make_qp_solver(dims, kktsolver, _vmap_facref(options),
+                                   with_eq), mesh)
 
 
 def batched_lp_solver(dims, kktsolver=None, options=None, mesh=None):
-    """solve(c[B], G[B], h[B][, A[B], b[B]]) -> batched conelp state."""
-    _no_mesh(mesh)
-    return make_lp_solver(dims, kktsolver, _vmap_facref(options))
+    """solve(c[B], G[B], h[B][, A[B], b[B]]) -> batched conelp state;
+    with `mesh`, dealt over its 'batch' axis (_on_mesh)."""
+    return _on_mesh(make_lp_solver(dims, kktsolver, _vmap_facref(options)),
+                    mesh)
 
 
 def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
@@ -154,12 +171,13 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
     Returns solve(P, q, G, h[, A, b]) -> (x, y, s, z, iterations,
     status, metrics) as tensors on the inputs' device.  solve.stats holds the
     last call's pass-1 status per lane ("pass1_status") and the number
-    of lanes pass 2 re-solved ("pass2_lanes")."""
-    _no_mesh(mesh)
+    of lanes pass 2 re-solved ("pass2_lanes").  With `mesh`, pass 1 is
+    dealt over its 'batch' axis (_on_mesh) and every rank runs pass 2 on
+    the whole batch's failed lanes, as the JAX function does."""
     o = _options(options)
     if o.ozaki is None:
         o = o._replace(ozaki=True)
-    fast = batched_qp_solver(dims, "chol2_mixed_nofb", o, None, with_eq)
+    fast = batched_qp_solver(dims, "chol2_mixed_nofb", o, mesh, with_eq)
     slow = batched_qp_solver(dims, "chol2", options, None, with_eq)
 
     def solve(P, q, G, h, *ab):

@@ -33,9 +33,10 @@ from .. import cones, config
 from ..cones import ConeDims
 from .coneprog import (
     RUNNING, OPTIMAL, UNKNOWN, PRIMAL_INFEASIBLE, DUAL_INFEASIBLE, SINGULAR,
-    _STATUS_STR, STEP, EXPON, Options, _asarray, _constraints,
-    _front_end_ops, _numel, _profile_ctx, _refuse_vector_spaces, _relgap,
-    _resolve_options, _solve_device, _where)
+    _STATUS_STR, STEP, EXPON, LANES, Options, _asarray, _constraints,
+    _custom_ops, _front_end_ops, _numel, _profile_ctx, _relgap,
+    _resolve_options, _solve_device, _spaces, _start, _tree_leaves,
+    _where)
 
 
 def conelp(c, G, h, dims=None, A=None, b=None, primalstart=None,
@@ -56,57 +57,73 @@ def conelp(c, G, h, dims=None, A=None, b=None, primalstart=None,
     device.  G and A may be operators with a custom kktsolver, as in
     coneqp; primalstart {'x', 's'} and dualstart {'y', 'z'} warm-start
     the iteration.  options['profile'] = <directory> writes the solve's
-    torch.profiler trace there (coneprog._profile_ctx)."""
-    _refuse_vector_spaces(xnewcopy, xdot, xscal, xaxpy, ynewcopy, ydot,
-                          yscal, yaxpy)
-    dev = _solve_device(c, h, G, A, b)
+    torch.profiler trace there (coneprog._profile_ctx).
+
+    Custom vector spaces, as in coneqp: any x* hook makes x and c
+    elements of the user's space (G an operator, kktsolver the user's),
+    any y* hook y and b (A an operator, b given); primalstart's x and
+    dualstart's y are then elements of those spaces."""
+    xops = _custom_ops(xnewcopy, xdot, xscal, xaxpy)
+    yops = _custom_ops(ynewcopy, ydot, yscal, yaxpy)
+    dev = _solve_device(*_tree_leaves(c), h, G, A, *_tree_leaves(b))
     with _profile_ctx(options, dev):
         return _conelp_impl(c, G, h, dims, A, b, primalstart, dualstart,
-                            kktsolver, options, dev)
+                            kktsolver, options, dev, xops, yops)
 
 
 def _conelp_impl(c, G, h, dims, A, b, primalstart, dualstart, kktsolver,
-                 options, dev):
-    """conelp on the device `dev`."""
+                 options, dev, xops=None, yops=None):
+    """conelp on the device `dev`; xops and yops the VecOps of custom x
+    and y spaces, else None."""
     o, dtype = _resolve_options(options)
-    c = _asarray(c, dtype, dev, name="c")
-    n = c.shape[0]
-    dims, h, b, Ga, Aa = _constraints(G, h, dims, A, b, n, dtype, dev)
+    if xops is not None and not (callable(G) and callable(kktsolver)):
+        raise ValueError("custom x vector space requires operator-form G "
+                         "and a custom kktsolver")
+    if yops is not None and not (A is not None and callable(A) and
+                                 b is not None):
+        raise ValueError("custom y vector space requires operator-form A "
+                         "and b")
+    xs, ys, zs, xsp, ysp = _spaces(dtype, dev, xops, yops)
+    n = None
+    if xops is None:
+        c = _asarray(c, dtype, dev, name="c")[None]
+        n = c.shape[1]
+    dims, h, b, Ga, Aa = _constraints(G, h, dims, A, b, n, dtype, dev,
+                                      custom_y=yops is not None)
     if kktsolver is None:
         kktsolver = "qr" if (dims.q or dims.s) else "chol2"
     o = o.resolve_refinement(dims, kktsolver)
     factor, gmv, amv, _ = _front_end_ops(dims, o, kktsolver, (G, A, None),
-                                         (Ga, Aa, None))
+                                         (Ga, Aa, None), xs, ys, zs)
 
-    def start(vec):
-        return _asarray(vec, dtype, dev)[None]
     ps = None
     if primalstart is not None:
-        ps = (start(primalstart["x"]), start(primalstart["s"]))
+        ps = (_start(xs, primalstart["x"], dtype, dev, "x"),
+              _start(zs, primalstart["s"], dtype, dev, "s"))
     dst = None
     if dualstart is not None:
         y0 = dualstart.get("y")
-        dst = (b.new_zeros((1, 0)) if y0 is None else start(y0),
-               start(dualstart["z"]))
-    state = _conelp_core(c[None], h, b, dims, o, factor, gmv, amv, ps, dst)
-    return _conelp_result(state, c[None], h, b, dims)
+        dst = (h.new_zeros((1, 0)) if y0 is None
+               else _start(ys, y0, dtype, dev, "y"),
+               _start(zs, dualstart["z"], dtype, dev, "z"))
+    state = _conelp_core(c, h, b, dims, o, factor, gmv, amv, ps, dst,
+                         xsp=xsp, ysp=ysp)
+    return _conelp_result(state, c, h, b, dims, xsp=xsp, ysp=ysp)
 
 
 def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
-                 primalstart=None, dualstart=None):
+                 primalstart=None, dualstart=None, xsp=LANES, ysp=LANES):
     """Batched conelp driver: c (B, n), h (B, m), b (B, p), `factor(W)` a
     KKT strategy over the batch, gmv/amv batched operator products;
-    primalstart (x, s) and dualstart (y, z), each (B, .), if given.
+    primalstart (x, s) and dualstart (y, z), each (B, .), if given; xsp
+    and ysp the operations on the x and y spaces (coneprog._coneqp_core).
     Returns the final state (x, y, s, z, tau, kappa, iterations, status,
     metrics), metrics a dict of (B,) tensors: pcost, dcost, gap, relgap,
     pres, dres, pinfres, dinfres."""
-    B, dtype, dev = c.shape[0], c.dtype, c.device
-    p = b.shape[-1]
+    B, dtype, dev = h.shape[0], h.dtype, h.device
+    p = ysp.size(b)
     deg = dims.degree
     e = cones.cone_e(dims, dtype, dev)
-
-    def norm(v):
-        return torch.linalg.vector_norm(v, dim=-1)
 
     def dot(u, v):
         return torch.sum(u * v, dim=-1)
@@ -114,8 +131,8 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
     def col(t):
         return t[:, None]
 
-    resx0 = torch.clamp(norm(c), min=1.0)
-    resy0 = torch.clamp(norm(b), min=1.0)
+    resx0 = torch.clamp(xsp.norm(c), min=1.0)
+    resy0 = torch.clamp(ysp.norm(b), min=1.0)
     resz0 = torch.clamp(cones.snrm2(dims, h), min=1.0)
 
     def shift(u, t):
@@ -126,12 +143,13 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
     def initial_point():
         solve0 = factor(cones.identity_scaling(dims, B, dtype, dev))
         if primalstart is None:
-            x0, _, z0p = solve0(torch.zeros_like(c), b, h)
+            x0, _, z0p = solve0(xsp.zero(c), b, h)
             s0 = -z0p
         else:
             x0, s0 = primalstart
         if dualstart is None:
-            _, y0, z0 = solve0(-c, torch.zeros_like(b), torch.zeros_like(h))
+            _, y0, z0 = solve0(xsp.scal(-1.0, c), ysp.zero(b),
+                               torch.zeros_like(h))
         else:
             y0, z0 = dualstart
         if primalstart is None and dualstart is None:
@@ -145,37 +163,38 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
         return x0, y0, s0, z0
 
     def residuals(x, y, s, z, tau, kappa):
-        rx = gmv(z, trans=True) + col(tau) * c
+        rx = xsp.axpy(gmv(z, trans=True), xsp.scal(tau, c))
         if p:
-            rx = amv(y, trans=True) + rx
-        ry = amv(x) - col(tau) * b if p else b
+            rx = xsp.axpy(amv(y, trans=True), rx)
+        ry = ysp.axpy(ysp.scal(tau, b), amv(x), -1.0) if p else b
         rz = gmv(x) + s - h * col(tau)
-        rt = kappa + dot(c, x) + (dot(b, y) if p else 0.0) + \
+        rt = kappa + xsp.dot(c, x) + (ysp.dot(b, y) if p else 0.0) + \
             cones.sdot(dims, h, z)
         return rx, ry, rz, rt
 
     def metrics_of(x, y, s, z, tau, kappa):
         rx, ry, rz, rt = residuals(x, y, s, z, tau, kappa)
         gap = cones.sdot(dims, s, z) / (tau * tau)
-        pcost = dot(c, x) / tau
-        dcost = -(cones.sdot(dims, h, z) + (dot(b, y) if p else 0.0)) / tau
+        pcost = xsp.dot(c, x) / tau
+        dcost = -(cones.sdot(dims, h, z) +
+                  (ysp.dot(b, y) if p else 0.0)) / tau
         pres = cones.snrm2(dims, rz) / resz0
         if p:
-            pres = torch.maximum(norm(ry) / resy0, pres)
+            pres = torch.maximum(ysp.norm(ry) / resy0, pres)
         pres = pres / tau
-        dres = norm(rx) / resx0 / tau
+        dres = xsp.norm(rx) / resx0 / tau
         # infeasibility certificates
         inf = torch.full_like(tau, math.inf)
-        hz_by = cones.sdot(dims, h, z) + (dot(b, y) if p else 0.0)
-        cx = dot(c, x)
+        hz_by = cones.sdot(dims, h, z) + (ysp.dot(b, y) if p else 0.0)
+        cx = xsp.dot(c, x)
         hrx = gmv(z, trans=True)
         if p:
-            hrx = amv(y, trans=True) + hrx
-        pinfres = torch.where(hz_by < 0.0, norm(hrx) / resx0 / (-hz_by),
+            hrx = xsp.axpy(amv(y, trans=True), hrx)
+        pinfres = torch.where(hz_by < 0.0, xsp.norm(hrx) / resx0 / (-hz_by),
                               inf)
         dinf = cones.snrm2(dims, gmv(x) + s) / resz0
         if p:
-            dinf = torch.maximum(norm(amv(x)) / resy0, dinf)
+            dinf = torch.maximum(ysp.norm(amv(x)) / resy0, dinf)
         dinfres = torch.where(cx < 0.0, dinf / (-cx), inf)
         return (rx, ry, rz, rt,
                 dict(pcost=pcost, dcost=dcost, gap=gap,
@@ -184,20 +203,20 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
 
     def f6_factory(solve, lmbda, W, tau, kappa):
         # (x1, y1, z1) = K^{-1}(-c, b, h), once per factorization
-        x1, y1, z1 = solve(-c, b, h)
-        dg = dot(c, x1) + (dot(b, y1) if p else 0.0) + \
+        x1, y1, z1 = solve(xsp.scal(-1.0, c), b, h)
+        dg = xsp.dot(c, x1) + (ysp.dot(b, y1) if p else 0.0) + \
             cones.sdot(dims, h, z1) - kappa / tau
 
         def f6_no_ir(bx, by, bz, bt, d_s, d_k):
             tmp = cones.sinv(dims, lmbda, d_s)
             xt, yt, zt = solve(bx, by,
                                bz - cones.scale(dims, W, tmp, trans=True))
-            num = (bt - d_k / tau) - (dot(c, xt) +
-                                      (dot(b, yt) if p else 0.0) +
+            num = (bt - d_k / tau) - (xsp.dot(c, xt) +
+                                      (ysp.dot(b, yt) if p else 0.0) +
                                       cones.sdot(dims, h, zt))
             dtau = num / dg
-            dx = col(dtau) * x1 + xt
-            dy = col(dtau) * y1 + yt if p else yt
+            dx = xsp.axpy(x1, xt, dtau)
+            dy = ysp.axpy(y1, yt, dtau) if p else yt
             dz = zt + col(dtau) * z1
             ds = cones.scale(dims, W, tmp - cones.scale(dims, W, dz),
                              trans=True)
@@ -208,13 +227,15 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
             d = f6_no_ir(bx, by, bz, bt, d_s, d_k)
             for _ in range(o.refinement):
                 dx, dy, dz, dtau, ds, dk = d
-                t = gmv(dz, trans=True) + col(dtau) * c
+                t = xsp.axpy(gmv(dz, trans=True), xsp.scal(dtau, c))
                 if p:
-                    t = amv(dy, trans=True) + t
-                r1 = bx - t
-                r2 = by - (amv(dx) - col(dtau) * b) if p else by
+                    t = xsp.axpy(amv(dy, trans=True), t)
+                r1 = xsp.axpy(t, bx, -1.0)
+                r2 = ysp.axpy(ysp.axpy(ysp.scal(dtau, b), amv(dx), -1.0),
+                              by, -1.0) if p else by
                 r3 = bz - (gmv(dx) + ds - h * col(dtau))
-                r4 = bt - (dot(c, dx) + (dot(b, dy) if p else 0.0) +
+                r4 = bt - (xsp.dot(c, dx) +
+                           (ysp.dot(b, dy) if p else 0.0) +
                            cones.sdot(dims, h, dz) + dk)
                 r5 = d_s - cones.sprod(
                     dims, lmbda,
@@ -222,8 +243,8 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
                     cones.scale(dims, W, dz), diag=True)
                 r6 = d_k - (kappa * dtau + tau * dk)
                 ex, ey, ez, et, es, ek = f6_no_ir(r1, r2, r3, r4, r5, r6)
-                d = (ex + dx, ey + dy if p else dy, dz + ez, dtau + et,
-                     ds + es, dk + ek)
+                d = (xsp.axpy(ex, dx), ysp.axpy(ey, dy) if p else dy,
+                     dz + ez, dtau + et, ds + es, dk + ek)
             return d
 
         return f6
@@ -245,7 +266,7 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
                        col(sigma * mu) * e)
                 d_k = -tau * kappa - dt * dk + sigma * mu
                 r = 1.0 - sigma
-            dx, dy, dz, dt, ds, dk = f6(col(-r) * rx, col(-r) * ry,
+            dx, dy, dz, dt, ds, dk = f6(xsp.scal(-r, rx), ysp.scal(-r, ry),
                                         col(-r) * rz, -r * rt, d_s, d_k)
             ds_w = cones.scale(dims, W, ds, trans=True, inverse=True)
             dz_w = cones.scale(dims, W, dz)
@@ -254,14 +275,15 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
             tlim = torch.minimum(t_cone, _tk_step(tau, kappa, dt, dk))
         step = torch.clamp(STEP * tlim, max=1.0)
 
-        xn = col(step) * dx + x
-        yn = col(step) * dy + y if p else y
+        xn = xsp.axpy(dx, x, step)
+        yn = ysp.axpy(dy, y, step) if p else y
         sn, zn = s + col(step) * ds, z + col(step) * dz
         tn, kn = tau + step * dt, kappa + step * dk
-        bad = ~torch.isfinite(dot(xn, xn) + dot(sn, sn) + dot(zn, zn) +
+        bad = ~torch.isfinite(xsp.dot(xn, xn) + dot(sn, sn) + dot(zn, zn) +
                               tn + kn) | (tn <= 0)
         st = torch.where(bad, SINGULAR, RUNNING).to(torch.int32)
-        return (_where(bad, x, xn), _where(bad, y, yn), _where(bad, s, sn),
+        return (xsp.where(bad, x, xn), ysp.where(bad, y, yn),
+                _where(bad, s, sn),
                 _where(bad, z, zn), torch.where(bad, tau, tn),
                 torch.where(bad, kappa, kn), st)
 
@@ -298,8 +320,8 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
         if bool(stepping.any()):
             xn, yn, sn, zn, tn, kn, st = do_step(x, y, s, z, tau, kappa,
                                                  rx, ry, rz, rt)
-            x = _where(stepping, xn, x)
-            y = _where(stepping, yn, y)
+            x = xsp.where(stepping, xn, x)
+            y = ysp.where(stepping, yn, y)
             s = _where(stepping, sn, s)
             z = _where(stepping, zn, z)
             tau = torch.where(stepping, tn, tau)
@@ -311,16 +333,17 @@ def _conelp_core(c, h, b, dims, o: Options, factor, gmv, amv,
     return x, y, s, z, tau, kappa, it, status, m
 
 
-def _conelp_result(state, c, h, b, dims, lane=0):
+def _conelp_result(state, c, h, b, dims, lane=0, xsp=LANES, ysp=LANES):
     """The reference's result dict for one lane of a conelp state: the
     iterates scaled by 1/tau, or the certificate scaled to h'z + b'y = -1
     ('primal infeasible') or c'x = -1 ('dual infeasible'), with None
-    where the reference has it."""
-    x, y, s, z, tau, _, it = (a[lane] for a in state[:7])
+    where the reference has it; xsp and ysp as in _conelp_core."""
+    x, y = xsp.lane(state[0], lane), ysp.lane(state[1], lane)
+    s, z, tau, _, it = (a[lane] for a in state[2:7])
     status = int(state[7][lane])
     m = {k: float(v[lane]) for k, v in state[8].items()}
-    c, h, b = c[lane], h[lane], b[lane]
-    p = b.shape[0]
+    c, b, h = xsp.lane(c, lane), ysp.lane(b, lane), h[lane]
+    p = ysp.size(b)
 
     res = {"status": _STATUS_STR.get(status, "unknown"),
            "iterations": int(it) - 1}
@@ -338,10 +361,10 @@ def _conelp_result(state, c, h, b, dims, lane=0):
     }
     if status == PRIMAL_INFEASIBLE:
         hz_by = float(cones.sdot(dims, h, z) +
-                      (torch.dot(b, y) if p else 0.0))
+                      (ysp.dot1(b, y) if p else 0.0))
         scale_cert = -1.0 / hz_by
         zc = z * scale_cert
-        res.update(x=None, s=None, y=y * scale_cert, z=zc)
+        res.update(x=None, s=None, y=ysp.scal1(scale_cert, y), z=zc)
         metrics.update({"primal objective": None, "gap": None,
                         "relative gap": None,
                         "dual objective": 1.0,
@@ -351,9 +374,9 @@ def _conelp_result(state, c, h, b, dims, lane=0):
                         "dual slack": -float(cones.max_step(dims,
                                                             zc[None])[0])})
     elif status == DUAL_INFEASIBLE:
-        scale_cert = -1.0 / float(torch.dot(c, x))
+        scale_cert = -1.0 / float(xsp.dot1(c, x))
         sc = s * scale_cert
-        res.update(x=x * scale_cert, s=sc, y=None, z=None)
+        res.update(x=xsp.scal1(scale_cert, x), s=sc, y=None, z=None)
         metrics.update({"dual objective": None, "gap": None,
                         "relative gap": None,
                         "primal objective": -1.0,
@@ -364,8 +387,8 @@ def _conelp_result(state, c, h, b, dims, lane=0):
                                                               sc[None])[0])})
     else:
         tauf = float(tau)
-        res.update(x=x * (1.0 / tauf), s=s / tauf, y=y * (1.0 / tauf),
-                   z=z / tauf)
+        res.update(x=xsp.scal1(1.0 / tauf, x), s=s / tauf,
+                   y=ysp.scal1(1.0 / tauf, y), z=z / tauf)
         ts, tz = cones.max_step2(dims, s[None], z[None])
         metrics["primal slack"] = -float(ts[0]) / tauf
         metrics["dual slack"] = -float(tz[0]) / tauf

@@ -11,11 +11,12 @@ The front ends take plain arrays (or tensors), solve one instance as a
 batch of one, and return the reference's result dictionary.  Array-like
 inputs go to config.default_device (the card); tensors keep their own
 device.  The vector-space operations of custom x and y spaces (VecOps)
-live here; cvxprog's cpl and cp take them, coneqp and conelp do not
-yet.  options['profile'] = <directory> runs a coneqp or conelp solve
-under torch.profiler and writes its Chrome trace there
-(_profile_ctx).  Executor dispatch is not ported yet (ROADMAP.md, Queue
-1).  The `solver=` routes (osqp, gurobi, mosek) live beside the conelp
+live here; coneqp, conelp, cpl and cp take them, and the batched cores
+reach a space only through _LaneSpace (dense lanes) or _UserSpace (a
+custom space, a batch of one).  options['profile'] = <directory> runs a
+coneqp or conelp solve under torch.profiler and writes its Chrome trace
+there (_profile_ctx).  Executor dispatch is not ported yet (ROADMAP.md,
+Queue 1).  The `solver=` routes (osqp, gurobi, mosek) live beside the conelp
 ones in _conelp.py.
 """
 
@@ -173,14 +174,6 @@ def _numel(x):
     return x.numel() if isinstance(x, torch.Tensor) else np.asarray(x).size
 
 
-def _refuse_vector_spaces(*hooks):
-    if any(f is not None for f in hooks):
-        raise NotImplementedError(
-            "custom vector spaces (xnewcopy/xdot/xscal/xaxpy and the y* "
-            "hooks) are ported for cpl and cp only, not for coneqp and "
-            "conelp yet (ROADMAP.md, Queue 1 item 11)")
-
-
 # ---------------------------------------------------------------------------
 # Custom vector spaces (the reference's third customization level,
 # coneprog.py:378-402: xnewcopy/xdot/xscal/xaxpy and the y* variants), as
@@ -289,6 +282,139 @@ class _AsGiven:
         return w
 
 
+class _LaneSpace:
+    """The batched cores' operations on a dense space: elements are
+    (B, k) tensors, one lane per problem, and a scalar is one per lane,
+    (B,); alpha is a float or such a tensor.  dot1, scal1 and lane work
+    on one lane's (k,) vector."""
+
+    @staticmethod
+    def size(u):
+        return u.shape[-1]
+
+    @staticmethod
+    def dot(u, v):
+        return torch.sum(u * v, dim=-1)
+
+    @staticmethod
+    def norm(u):
+        return torch.linalg.vector_norm(u, dim=-1)
+
+    @staticmethod
+    def scal(alpha, u):
+        return (alpha[:, None] if isinstance(alpha, torch.Tensor)
+                else alpha) * u
+
+    @staticmethod
+    def axpy(u, v, alpha=1.0):
+        """alpha u + v (v - u for alpha = -1, as bits go the same)."""
+        if isinstance(alpha, torch.Tensor):
+            return alpha[:, None] * u + v
+        if alpha == 1.0:
+            return u + v
+        if alpha == -1.0:
+            return v - u
+        return alpha * u + v
+
+    @staticmethod
+    def where(mask, a, b):
+        return _where(mask, a, b)
+
+    zero = staticmethod(torch.zeros_like)
+
+    @staticmethod
+    def lane(u, i):
+        return u[i]
+
+    dot1 = staticmethod(torch.dot)
+
+    @staticmethod
+    def scal1(alpha, u):
+        return u * alpha
+
+
+LANES = _LaneSpace()
+
+
+class _UserSpace:
+    """The batched cores' operations on a custom space (VecOps `ops`) in
+    a solve of one problem: elements are the user's, as given, and a
+    scalar is a (1,) tensor of `dtype` on `device`; the hooks get alpha
+    as a float or a 0-d tensor.  A select on the lane maps torch.where
+    over the element's leaves."""
+
+    def __init__(self, ops, dtype, device):
+        self.ops, self.dtype, self.device = ops, dtype, device
+
+    def _lanes(self, a):
+        return torch.as_tensor(a, dtype=self.dtype,
+                               device=self.device).reshape(1)
+
+    @staticmethod
+    def _scalar(alpha):
+        return alpha.reshape(()) if isinstance(alpha, torch.Tensor) else alpha
+
+    @staticmethod
+    def size(u):
+        return 1
+
+    def dot(self, u, v):
+        return self._lanes(self.ops.dot(u, v))
+
+    def norm(self, u):
+        return self._lanes(self.ops.norm(u))
+
+    def scal(self, alpha, u):
+        return self.ops.scal(self._scalar(alpha), u)
+
+    def axpy(self, u, v, alpha=1.0):
+        return self.ops.axpy(u, v, self._scalar(alpha))
+
+    @staticmethod
+    def where(mask, a, b):
+        return _tree_map(lambda u, v: torch.where(mask[0], u, v), a, b)
+
+    def zero(self, u):
+        return self.ops.zero(u)
+
+    @staticmethod
+    def lane(u, i):
+        return u
+
+    def dot1(self, u, v):
+        return self.ops.dot(u, v)
+
+    def scal1(self, alpha, u):
+        return self.ops.scal(alpha, u)
+
+
+def _spaces(dtype, device, xops, yops):
+    """(xs, ys, zs, xsp, ysp) of a front-end solve: how the solve hands
+    x, y and cone vectors to the user (_Lanes, or _AsGiven for a custom
+    space) and the cores' operations on x and y (LANES or a _UserSpace);
+    xops and yops are the VecOps of custom spaces, else None."""
+    lanes = _Lanes(dtype, device)
+    return ((lanes if xops is None else _AsGiven),
+            (lanes if yops is None else _AsGiven), lanes,
+            (LANES if xops is None else _UserSpace(xops, dtype, device)),
+            (LANES if yops is None else _UserSpace(yops, dtype, device)))
+
+
+def _start(space, v, dtype, device, name):
+    """A starting point's vector: the user's element as given in a custom
+    space (_AsGiven), else a batch of one of `dtype` on `device`."""
+    return v if space is _AsGiven else _asarray(v, dtype, device,
+                                                name=name)[None]
+
+
+def _custom_ops(newcopy, dot, scal, axpy):
+    """The VecOps of a custom space where any of its hooks is given, else
+    None."""
+    if all(f is None for f in (newcopy, dot, scal, axpy)):
+        return None
+    return _make_vecops(newcopy, dot, scal, axpy)
+
+
 def _matrix_ops(G, A, P):
     """gmv, amv and pmv of batched matrices G (B, m, n), A (B, p, n) and
     P (B, n, n); gmv and amv take trans=True for G' and A'."""
@@ -344,11 +470,12 @@ def _instance_factor(kktsolver, dims, xspace=None, yspace=None):
     return factor
 
 
-def _constraints(G, h, dims, A, b, n, dtype, dev):
+def _constraints(G, h, dims, A, b, n, dtype, dev, custom_y=False):
     """The front ends' constraint data as batches of one: (dims, h (1, m),
     b (1, p), G (1, m, n), A (1, p, n)), G and A None where they are
-    operators.  The s blocks of G and h are made symmetric from their
-    lower triangle (column-major storage)."""
+    operators, A None where it is missing in a custom x space (n None),
+    b as given in a custom y space.  The s blocks of G and h are made
+    symmetric from their lower triangle (column-major storage)."""
     if dims is None:
         dims = ConeDims(l=int(_numel(h)))
     dims = ConeDims.from_dict(dims)
@@ -356,30 +483,34 @@ def _constraints(G, h, dims, A, b, n, dtype, dev):
         raise ValueError("the cone must be nonempty")
     h = cones.sym_from_lower(dims, _asarray(
         h, dtype, dev, shape=(dims.size,), name="h")[None])
-    b = (_asarray(b, dtype, dev, name="b") if b is not None
-         else torch.zeros((0,), dtype=dtype, device=dev))[None]
+    if not custom_y:
+        b = (_asarray(b, dtype, dev, name="b") if b is not None
+             else torch.zeros((0,), dtype=dtype, device=dev))[None]
     Ga = None if callable(G) else cones.sym_from_lower_cols(dims, _asarray(
         G, dtype, dev, shape=(dims.size, n), name="G")[None])
-    Aa = None if callable(A) else (
+    Aa = None if callable(A) or (A is None and n is None) else (
         torch.zeros((1, 0, n), dtype=dtype, device=dev) if A is None
         else _asarray(A, dtype, dev, shape=(b.shape[1], n), name="A")[None])
     return dims, h, b, Ga, Aa
 
 
-def _front_end_ops(dims, o, kktsolver, given, batched):
+def _front_end_ops(dims, o, kktsolver, given, batched, xs, ys, zs):
     """(factor, gmv, amv, pmv) of a front-end solve: `given` the caller's
     (G, A, P), `batched` their batch-of-one tensors (None for an
-    operator).  A named strategy factors the tensors; operators need the
-    caller's own kktsolver."""
+    operator); xs, ys and zs carry x, y and cone vectors between the
+    solve and the user (_spaces).  A named strategy factors the tensors;
+    operators need the caller's own kktsolver."""
     if isinstance(kktsolver, str):
         if any(callable(M) for M in given):
             raise ValueError("operator-form P/G/A require a custom kktsolver")
         factor = kkt.make_kkt_solver(kktsolver, dims, *batched, reg=o.kktreg,
                                      ozaki=o.ozaki, facref=o.facref)
     else:
-        factor = _instance_factor(kktsolver, dims)
-    return (factor, *(_instance_op(M) if callable(M) else op
-                      for M, op in zip(given, _matrix_ops(*batched))))
+        factor = _instance_factor(kktsolver, dims, xs, ys)
+    domains = ((xs, zs), (xs, ys), (xs, xs))   # G, A, P
+    return (factor, *(_instance_op(M, *dc) if callable(M) else op
+                      for M, op, dc in zip(given, _matrix_ops(*batched),
+                                           domains)))
 
 
 class Metrics(NamedTuple):
@@ -431,45 +562,45 @@ def _qp_metrics_dict(dims, m: Metrics, s, z):
 
 
 def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
-                 pmv, init=None):
+                 pmv, init=None, xsp=LANES, ysp=LANES):
     """Batched coneqp driver: q (B, n), h (B, m), b (B, p), `factor(W)` a
     KKT strategy over the batch, gmv/amv/pmv batched operator products
     (gmv and amv take trans=True for G' and A'); init, if given, the
-    starting (x, y, s, z), each (B, .).  Returns the final state
+    starting (x, y, s, z), each (B, .).  xsp and ysp are the operations
+    on the x and y spaces (LANES, or a _UserSpace with q or b and the
+    iterates the user's elements, B = 1).  Returns the final state
     (x, y, s, z, iterations, status, metrics)."""
-    B, dtype, dev = q.shape[0], q.dtype, q.device
-    p = b.shape[-1]
+    B, dtype, dev = h.shape[0], h.dtype, h.device
+    p = ysp.size(b)
     deg = dims.degree
     e = cones.cone_e(dims, dtype, dev)
-    def norm(v):
-        return torch.linalg.vector_norm(v, dim=-1)
 
     def dot(u, v):
         return torch.sum(u * v, dim=-1)
 
-    resx0 = torch.clamp(norm(q), min=1.0)
-    resy0 = torch.clamp(norm(b), min=1.0)
+    resx0 = torch.clamp(xsp.norm(q), min=1.0)
+    resy0 = torch.clamp(ysp.norm(b), min=1.0)
     resz0 = torch.clamp(cones.snrm2(dims, h), min=1.0)
 
     def newton(solve, lmbda, W, rx, ry, rz, d_target):
         """Solve the Newton system for a given complementarity target."""
         tmp = cones.sinv(dims, lmbda, d_target)
         bz = -rz - cones.scale(dims, W, tmp, trans=True)
-        bx, by = -rx, -ry
+        bx, by = xsp.scal(-1.0, rx), ysp.scal(-1.0, ry)
         dx, dy, dz = solve(bx, by, bz)
         for _ in range(o.refinement):
             # residuals of the full (unscaled) Newton system
             t = pmv(dx)
             if p:
-                t = amv(dy, trans=True) + t
-            r1 = bx - (gmv(dz, trans=True) + t)
-            r2 = by - amv(dx) if p else by
+                t = xsp.axpy(amv(dy, trans=True), t)
+            r1 = xsp.axpy(xsp.axpy(gmv(dz, trans=True), t), bx, -1.0)
+            r2 = ysp.axpy(amv(dx), by, -1.0) if p else by
             wtwdz = cones.scale(dims, W, cones.scale(dims, W, dz),
                                 trans=True)
             r3 = bz - (gmv(dx) - wtwdz)
             ex, ey, ez = solve(r1, r2, r3)
-            dx = ex + dx
-            dy = ey + dy if p else dy
+            dx = xsp.axpy(ex, dx)
+            dy = ysp.axpy(ey, dy) if p else dy
             dz = dz + ez
         ds = cones.scale(dims, W, tmp - cones.scale(dims, W, dz),
                          trans=True)
@@ -479,7 +610,7 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
         if init is not None:
             return init
         W0 = cones.identity_scaling(dims, B, dtype, dev)
-        x0, y0, z0 = factor(W0)(-q, b, h)
+        x0, y0, z0 = factor(W0)(xsp.scal(-1.0, q), b, h)
         s0 = -z0
         ts, tz = cones.max_step2(dims, s0, z0)
         s0 = _where(ts >= -1e-8 * torch.clamp(torch.abs(ts), min=1.0),
@@ -489,19 +620,19 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
         return x0, y0, s0, z0
 
     def metrics_of(x, y, s, z):
-        rx = pmv(x) + (gmv(z, trans=True) + q)
+        rx = xsp.axpy(pmv(x), xsp.axpy(gmv(z, trans=True), q))
         if p:
-            rx = amv(y, trans=True) + rx
-        ry = amv(x) - b if p else b
+            rx = xsp.axpy(amv(y, trans=True), rx)
+        ry = ysp.axpy(b, amv(x), -1.0) if p else b
         rz = gmv(x) + s - h
         gap = cones.sdot(dims, s, z)
-        pcost = 0.5 * dot(x, pmv(x)) + dot(q, x)
-        dcost = pcost + (dot(y, ry) if p else 0.0) + \
+        pcost = 0.5 * xsp.dot(x, pmv(x)) + xsp.dot(q, x)
+        dcost = pcost + (ysp.dot(y, ry) if p else 0.0) + \
             cones.sdot(dims, z, rz) - gap
         pres = torch.clamp(cones.snrm2(dims, rz) / resz0, min=0.0)
         if p:
-            pres = torch.maximum(norm(ry) / resy0, pres)
-        dres = norm(rx) / resx0
+            pres = torch.maximum(ysp.norm(ry) / resy0, pres)
+        dres = xsp.norm(rx) / resx0
         return rx, ry, rz, Metrics(pcost, dcost, gap,
                                    _relgap(gap, pcost, dcost), pres, dres)
 
@@ -534,14 +665,14 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
             tinv <= 0.0, torch.full_like(tinv, 1.0 / STEP),
             torch.clamp(1.0 / tinv, max=1.0 / STEP)), max=1.0)
 
-        xn = step[:, None] * dx + x
-        yn = step[:, None] * dy + y if p else y
+        xn = xsp.axpy(dx, x, step)
+        yn = ysp.axpy(dy, y, step) if p else y
         sn = s + step[:, None] * ds
         zn = z + step[:, None] * dz
-        bad = ~torch.isfinite(dot(xn, xn) + dot(sn, sn) + dot(zn, zn))
+        bad = ~torch.isfinite(xsp.dot(xn, xn) + dot(sn, sn) + dot(zn, zn))
         st = torch.where(bad, SINGULAR, RUNNING).to(torch.int32)
-        return (_where(bad, x, xn), _where(bad, y, yn), _where(bad, s, sn),
-                _where(bad, z, zn), st)
+        return (xsp.where(bad, x, xn), ysp.where(bad, y, yn),
+                _where(bad, s, sn), _where(bad, z, zn), st)
 
     x, y, s, z = initial_point()
     m = metrics_of(x, y, s, z)[3]
@@ -566,8 +697,8 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
         stepping = live & (new_status == RUNNING)
         if bool(stepping.any()):
             xn, yn, sn, zn, st = do_step(x, y, s, z, rx, ry, rz, mm)
-            x = _where(stepping, xn, x)
-            y = _where(stepping, yn, y)
+            x = xsp.where(stepping, xn, x)
+            y = ysp.where(stepping, yn, y)
             s = _where(stepping, sn, s)
             z = _where(stepping, zn, z)
             new_status = torch.where(stepping, st, new_status)
@@ -599,25 +730,53 @@ def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None, initvals=None,
     one entry per q or s block (convert.scaling_instance).  initvals
     may be partial: x and y default to zero, s and z to the cone's
     identity.  options['profile'] = <directory> writes the solve's
-    torch.profiler trace there (_profile_ctx)."""
-    _refuse_vector_spaces(xnewcopy, xdot, xscal, xaxpy, ynewcopy, ydot,
-                          yscal, yaxpy)
-    dev = _solve_device(q, h, G, P, A, b)
+    torch.profiler trace there (_profile_ctx).
+
+    Custom vector spaces (reference coneprog.py:378-402): passing any of
+    xnewcopy/xdot/xscal/xaxpy makes x and q elements of the user's
+    space, as given (tensors, or dicts, lists or tuples of them, nested);
+    P and G must then be operators and kktsolver the user's, whose solve
+    gets and returns x elements.  The y* hooks do the same for y and b,
+    with an operator A.  The hooks are functional: xscal(alpha, u) ->
+    alpha u, xaxpy(u, v, alpha) -> alpha u + v, xdot(u, v) -> a scalar;
+    unset hooks default to the elementwise ones over the leaves.  initvals,
+    where given, must then hold x and y."""
+    xops = _custom_ops(xnewcopy, xdot, xscal, xaxpy)
+    yops = _custom_ops(ynewcopy, ydot, yscal, yaxpy)
+    dev = _solve_device(*_tree_leaves(q), h, G, P, A, *_tree_leaves(b))
     with _profile_ctx(options, dev):
         return _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver,
-                            options, dev)
+                            options, dev, xops, yops)
 
 
-def _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver, options, dev):
-    """coneqp on the device `dev`."""
+def _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver, options, dev,
+                 xops=None, yops=None):
+    """coneqp on the device `dev`; xops and yops the VecOps of custom x
+    and y spaces, else None."""
     o, dtype = _resolve_options(options)
-    q = _asarray(q, dtype, dev, name="q")
-    n = q.shape[0]
+    custom = xops is not None or yops is not None
+    if xops is not None:
+        if not (callable(G) and callable(P)):
+            raise ValueError("custom x vector space requires operator-form "
+                             "P and G")
+        if not callable(kktsolver):
+            raise ValueError("custom x vector space requires a custom "
+                             "kktsolver")
+    if yops is not None:
+        if A is None:
+            raise ValueError("custom y vector space requires A")
+        if not callable(A):
+            raise ValueError("custom y vector space requires operator-form A")
+    xs, ys, zs, xsp, ysp = _spaces(dtype, dev, xops, yops)
+    n = None
+    if xops is None:
+        q = _asarray(q, dtype, dev, name="q")[None]
+        n = q.shape[1]
     if G is None and dims is None:
         raise ValueError("G and dims required (use a pure QP via A only is "
                          "not supported without inequalities)")
-    dims, h, b, Ga, Aa = _constraints(G, h, dims, A, b, n, dtype, dev)
-    p = b.shape[-1]
+    dims, h, b, Ga, Aa = _constraints(G, h, dims, A, b, n, dtype, dev,
+                                      custom_y=yops is not None)
     Pa = None if callable(P) else (
         torch.zeros((1, n, n), dtype=dtype, device=dev) if P is None
         else _asarray(P, dtype, dev, shape=(n, n), name="P")[None])
@@ -625,23 +784,32 @@ def _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver, options, dev):
         kktsolver = "chol" if (dims.q or dims.s) else "chol2"
     o = o.resolve_refinement(dims, kktsolver)
     factor, gmv, amv, pmv = _front_end_ops(dims, o, kktsolver, (G, A, P),
-                                           (Ga, Aa, Pa))
+                                           (Ga, Aa, Pa), xs, ys, zs)
 
     init = None
     if initvals is not None:
         e0 = cones.cone_e(dims, dtype, dev)
-        defaults = {"x": torch.zeros((n,), dtype=dtype, device=dev),
-                    "y": torch.zeros((p,), dtype=dtype, device=dev),
+        if custom and any(initvals.get(k) is None for k in ("x", "y")):
+            raise ValueError("custom vector spaces require complete "
+                             "initvals")
+        defaults = {"x": torch.zeros((n or 0,), dtype=dtype, device=dev),
+                    "y": torch.zeros((ysp.size(b),), dtype=dtype,
+                                     device=dev),
                     "s": e0, "z": e0}
+        spaces = {"x": xs, "y": ys, "s": zs, "z": zs}
         init = tuple(
-            (_asarray(initvals[k], dtype, dev, name=k)
-             if initvals.get(k) is not None else defaults[k])[None]
+            _start(spaces[k], initvals[k], dtype, dev, k)
+            if initvals.get(k) is not None else defaults[k][None]
             for k in ("x", "y", "s", "z"))
+    if yops is not None and b is None:
+        raise ValueError("custom y vector space requires b")
 
     x, y, s, z, it, status, m = _coneqp_core(
-        q[None], h, b, dims, o, factor, gmv, amv, pmv, init=init)
+        q, h, b, dims, o, factor, gmv, amv, pmv, init=init, xsp=xsp,
+        ysp=ysp)
     m = Metrics(*(a[0] for a in m))
-    return _result_dict(int(status[0]), x[0], y[0], s[0], z[0], dims,
+    return _result_dict(int(status[0]), xsp.lane(x, 0), ysp.lane(y, 0),
+                        s[0], z[0], dims,
                         _qp_metrics_dict(dims, m, s[0], z[0]),
                         int(it[0]) - 1)
 

@@ -1,7 +1,7 @@
 """The customization levels of the port's cpl and cp: operator-form G
 with a user kktsolver(W, H, Df), a custom x-space of dicts of tensors,
-the ldl fallback of the condensed strategies, the device rule, and the
-cone-program front ends that still refuse custom vector spaces.
+the ldl fallback of the condensed strategies and the device rule
+(coneqp's and conelp's custom spaces: tests/test_torch_custom_spaces.py).
 
 Parity cases hold the port against the JAX package on the same numpy
 data, with tests/test_torch_cvxprog.py's bar: the same status and keys,
@@ -296,17 +296,6 @@ def test_tensors_keep_their_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sol = tsolvers.gp([2], torch.tensor([[1.0], [-1.0]]), torch.zeros(2))
     assert sol["status"] == "optimal" and sol["x"].device.type == "cpu"
-
-
-@pytest.mark.parametrize("entry", ["coneqp", "conelp"])
-@pytest.mark.parametrize("hook", ["xdot", "ynewcopy"])
-def test_cone_front_ends_refuse_custom_spaces(entry, hook, on_the_cpu):
-    c = np.array([-4.0, -5.0])
-    G = np.array([[2.0, 1.0], [1.0, 2.0], [-1.0, 0.0], [0.0, -1.0]])
-    h = np.array([3.0, 3.0, 0.0, 0.0])
-    args = (np.eye(2), c, G, h) if entry == "coneqp" else (c, G, h)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(tsolvers, entry)(*args, **{hook: lambda *a: None})
 
 
 def test_the_solvers_export_the_nonlinear_front_ends():

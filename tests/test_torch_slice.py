@@ -117,11 +117,9 @@ def test_conversions_from_jax_objects():
 
 def test_unported_inputs_raise():
     """q cones and equality constraints (tests/test_torch_slice_eq.py), s
-    cones and the ldl strategies (tests/test_torch_slice_s.py) are ported;
-    mesh sharding still raises with a pointer to the roadmap."""
+    cones and the ldl strategies (tests/test_torch_slice_s.py) are ported
+    (mesh=: tests/test_torch_parallel_mesh.py)."""
     tb.make_qp_solver(ConeDims(l=3, q=(3,)), with_eq=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.batched_qp_solver(ConeDims(l=3), mesh=object())
     # min |x|^2 / 2 + x0 + x1 with diag(x0, x1) in S^2_+ and x0 + x1 = 1
     P, q = torch.eye(2, dtype=torch.float64), torch.ones(2, dtype=torch.float64)
     G = torch.zeros((4, 2), dtype=torch.float64)

@@ -2,8 +2,7 @@
 against the JAX package's on the scenario batch of chip_smoke's phase 11
 (chip_smoke.grid_scenarios, at small k) and on the batched SDP of
 tests/test_parallel.py; the solver= routes against the JAX package's;
-custom vector spaces in coneqp/conelp, not ported yet, raise naming
-ROADMAP.md; with no device named and no card, a front end raises.
+with no device named and no card, a front end raises.
 
 Per lane of the 9-tuple (x, y, s, z, tau, kappa, iterations, status,
 metrics): the same status, iterations within 1, x/tau within
@@ -125,21 +124,6 @@ def test_solver_routes_do_what_jax_does(call):
     ref = ROUTES[call](jax_solvers)
     assert port["status"] == ref["status"] == "optimal"
     same(port, ref, tol=1e-9 if "osqp" in call else 1e-10)
-
-
-UNPORTED = {
-    "conelp xdot": lambda: solvers.conelp(
-        *LP, xdot=lambda u, v: torch.dot(u, v)),
-    "coneqp ynewcopy": lambda: solvers.coneqp(
-        np.eye(2), LP[0], *LP[1:], ynewcopy=lambda u: u),
-}
-
-
-@pytest.mark.parametrize("call", sorted(UNPORTED))
-def test_unported_routes_raise(call):
-    with config.using_device("cpu"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            UNPORTED[call]()
 
 
 @pytest.mark.parametrize("entry", ["lp", "qp", "batched_lp_solver"])
