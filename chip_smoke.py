@@ -14,7 +14,9 @@ on the card, glpk, dsdp); the sequential batch driver with
 chol2_mixed's per-lane f64 fallback, misc on the card and
 options['profile']; and custom vector spaces in coneqp/conelp with the
 multi-device layer over torch.distributed (sharded_kkt_solver,
-dist_cholesky, arrow_kkt_factor, mesh=) in spawned worlds on the card.
+dist_cholesky, arrow_kkt_factor, mesh=) in spawned worlds on the card;
+and the executor dispatch: the crossovers between the card and the CPU
+that set its thresholds, and its routes.
 
     python3 chip_smoke.py
 
@@ -181,7 +183,43 @@ Phases (any failure exits non-zero and prints no result):
      relative; (e) batched_qp_solver_mixed(mesh=) on phase 3's problems,
      at world 2 each rank on its 8 lanes: phase 3's status and
      iterations, x within 1e-12 (1 + |x|), K1-K3 launched (world 1's
-     counts are launches_phase17); each part's wall.
+     counts are launches_phase17); each part's wall;
+ 18. "dispatch", after the CPU workers have ended, the host CPU's model
+     and torch's thread count printed: (a) solvers.qp and solvers.lp
+     with numpy data on large_problem(0, n, 2n) (the LP's c = -G'z0,
+     orthant_lp; KKT order 3n) at n in DISPATCH_N, and the userguide
+     LP, SOCP and SDP, each on the card and under
+     config.using_device("cpu"), the median of DISPATCH_REPS warm calls
+     taken in turns; (b) batched_qp_solver(ConeDims(l=2n), "chol2") and
+     batched_lp_solver on B=16 such problems at n in DISPATCH_NB (and
+     DISPATCH_NB_MORE while the CPU still wins), tensors on the card
+     against CPU tensors, the same status per lane on both, every lane
+     optimal at DISPATCH_NB (at n=1024 f64 chol2 ends some orthant lanes
+     'singular', in the JAX package too); (c) K1, K2 (k=1) and K3
+     (k=n) against cholesky_ex, cholesky_solve and solve_triangular at
+     B=16 over DISPATCH_NK, host median of 20, and the three summed
+     (a factor and its solves); (e) the repo's own single-instance
+     solves (phase 13's gp, acent2 and l+q+s cpl, phase 15's PWL models
+     through op.solve) on the card and on the CPU, beside their KKT
+     order and the route the default thresholds give them; each
+     crossover (the smallest KKT order, or n for (c), from which the
+     card wins at every larger one swept) printed beside its default in
+     config.py (ops/ipm_chol.py: 0, the kernels at every n), a
+     difference printed, not checked; (d) with both thresholds ROUTE_T:
+     the userguide LP, SOCP and SDP come back on the CPU and coneqp at
+     n=512 on the card, each with the card-forced call's status,
+     iterations within 1, x within 1e-6 (1 + |x|); batched_lp_solver at
+     B=16 n=32 given numpy data returns CPU tensors within 1e-6 of the
+     card's, given CUDA tensors stays on the card; batched_qp_solver at
+     n=32 with "chol2_mixed_nofb" on numpy data, and with "chol2" on f32
+     CUDA tensors, stays on the card and launches K1; with thresholds 0
+     the userguide LP stays on the card; in a fresh process
+     KVXOPT_TPU_HOST_DISPATCH=0 turns dispatch off (the LP on the card)
+     and ROUTE_T turns it on.
+Phases 1-17 run with executor dispatch off (both thresholds 0, in this
+process and, through the environment, in every process it starts), so
+that they measure the card; phase 18 sets the thresholds itself and
+restores config.py's defaults at its end.
 The CPU solves of phases 4, 6, 10 and 11-15 run in three worker
 processes (spawned after the build, at lower priority, a few CPU threads
 each; phase 10's first, then the short ones of 11-15, then phases 4
@@ -3045,6 +3083,398 @@ def multi_device(dev, gpu3):
     return launches
 
 
+# phase 18, "dispatch": the executor dispatch's crossovers and routes
+DISPATCH_N = (4, 16, 64, 128, 256, 512)   # (a) single-instance n, m = 2n
+DISPATCH_NB = (16, 64, 128, 256, 512)     # (b) batched n, B = 16
+DISPATCH_NB_MORE = (1024, 2048)           # (b) where the CPU wins at 512
+DISPATCH_NK = (8, 16, 32, 64, 128, 256)   # (c) K1-K3 against torch.linalg
+ROUTE_T = 128   # (d) both thresholds of the routing checks
+
+
+def cpu_model():
+    """The host CPU from /proc/cpuinfo: its model name, vendor, family,
+    model and stepping, logical CPUs and whether it has AVX-512 and AMX
+    (a sandbox may give the model name as "unknown")."""
+    info, cpus = {}, 0
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            key = key.strip()
+            cpus += key == "processor"
+            info.setdefault(key, val.strip())
+    flags = info.get("flags", "").split()
+    return (f"{info.get('model name', 'not given')} ({info.get('vendor_id')}"
+            f" family {info.get('cpu family')} model {info.get('model')} "
+            f"stepping {info.get('stepping')}, {cpus} logical CPUs, avx512f "
+            f"{'avx512f' in flags}, amx {'amx_tile' in flags})")
+
+
+def set_thresholds(single, batched):
+    from kvxopt_tpu_torch import config
+    config.host_dispatch_threshold = single
+    config.host_dispatch_threshold_batched = batched
+
+
+def orthant_lp(seed, n):
+    """A bounded LP on large_problem(seed, n, 2n)'s G and h: c = -G'z0
+    with z0 uniform(0.5, 1.5), so (z0, 0) is dual feasible."""
+    _, _, G, h = large_problem(seed, n, 2 * n)
+    z0 = np.random.default_rng(seed + 1).uniform(0.5, 1.5, 2 * n)
+    return -G.T @ z0, G, h
+
+
+DISPATCH_REPS = 5
+DISPATCH_REPS_E = 3
+
+
+def card_and_cpu(fn, cpu_fn=None, reps=DISPATCH_REPS):
+    """fn() on the card and cpu_fn() on the CPU (by default fn under
+    config.using_device('cpu')), dispatch off: per side one untimed call,
+    then `reps` warm calls taken in turns, card then CPU -> (card s, cpu
+    s, card result, cpu result), each time a median."""
+    from kvxopt_tpu_torch import config
+
+    def on_cpu():
+        with config.using_device("cpu"):
+            return fn()
+    sides = (fn, cpu_fn or on_cpu)
+    res = [f() for f in sides]
+    ts = [[], []]
+    for _ in range(reps):
+        for t, f in zip(ts, sides):
+            t += warm_times(f, reps=1)
+    return float(np.median(ts[0])), float(np.median(ts[1])), res[0], res[1]
+
+
+def crossover(ns, card, cpu):
+    """The smallest n of ns from which the card is faster at every larger
+    n swept (None where the CPU wins at the largest); card and cpu map a
+    label to its times over ns, and every label must be won."""
+    x = None
+    for i in range(len(ns) - 1, -1, -1):
+        if not all(card[k][i] < cpu[k][i] for k in card):
+            break
+        x = ns[i]
+    return x
+
+
+def threshold_of(x, ns):
+    """The threshold a crossover gives: 0 where the card wins at every n
+    swept, else the crossover itself ('> max' where there is none)."""
+    if x is None:
+        return f"> {ns[-1]}"
+    return 0 if x == ns[0] else x
+
+
+def same_solution(label, sol, ref):
+    """A routed front-end result against the card-forced call's: same
+    status, iterations within 1, x within 1e-6 (1 + |x|)."""
+    x, xr = (np.asarray(r["x"].cpu()) for r in (sol, ref))
+    dx = np.linalg.norm(x - xr) / (1 + np.linalg.norm(xr))
+    print(f"dispatch (d) {label}: on {sol['x'].device.type}, status "
+          f"{sol['status']}, iterations {sol['iterations']} (card "
+          f"{ref['iterations']}), |x-x_card|/(1+|x_card|) {dx:.3e} (tol "
+          "1e-6)", flush=True)
+    check(sol["status"] == ref["status"] and
+          abs(sol["iterations"] - ref["iterations"]) <= 1 and dx <= 1e-6,
+          f"dispatch (d) {label}: differs from the card-forced call")
+
+
+def dispatch_single(dev):
+    """Phase 18(a): solvers.qp and solvers.lp with numpy data on the
+    orthant problems at DISPATCH_N, and the userguide LP, SOCP and SDP,
+    on the card and on the CPU -> the crossover."""
+    from kvxopt_tpu_torch import solvers
+    card, cpu = {"qp": [], "lp": []}, {"qp": [], "lp": []}
+    for n in DISPATCH_N:
+        P, q, G, h = large_problem(0, n, 2 * n)
+        c = orthant_lp(0, n)[0]
+        for name, fn in (("qp", lambda: solvers.qp(P, q, G, h)),
+                         ("lp", lambda: solvers.lp(c, G, h))):
+            tc, tp, sc, sp = card_and_cpu(fn)
+            card[name].append(tc)
+            cpu[name].append(tp)
+            check(sc["status"] == sp["status"] == "optimal",
+                  f"dispatch (a) {name} n={n}: status {sc['status']} / "
+                  f"{sp['status']}")
+            print(f"dispatch (a) {name} n={n} m={2 * n} (order {3 * n}): card "
+                  f"{1e3 * tc:.4f} ms, cpu {1e3 * tp:.4f} ms (warm median "
+                  f"of {DISPATCH_REPS}), iterations {sc['iterations']} / "
+                  f"{sp['iterations']}", flush=True)
+    lp, socp, sdp = userguide_data()[:3]
+    for name, fn in (
+            ("lp userguide n=2", lambda: solvers.lp(*lp)),
+            ("socp userguide n=3", lambda: solvers.socp(
+                socp[0], Gq=socp[1], hq=socp[2])),
+            ("sdp userguide n=3", lambda: solvers.sdp(
+                sdp[0], Gs=sdp[1], hs=sdp[2]))):
+        tc, tp, _, _ = card_and_cpu(fn)
+        print(f"dispatch (a) {name}: card {1e3 * tc:.4f} ms, cpu "
+              f"{1e3 * tp:.4f} ms (warm median of {DISPATCH_REPS})",
+              flush=True)
+    orders = [3 * n for n in DISPATCH_N]
+    return crossover(orders, card, cpu), orders
+
+
+def dispatch_batched(dev):
+    """Phase 18(b): batched_qp_solver(ConeDims(l=2n), 'chol2') and
+    batched_lp_solver on B=16 orthant problems at DISPATCH_NB (and
+    DISPATCH_NB_MORE where the CPU still wins at 512), tensors on the
+    card against CPU tensors -> the crossover."""
+    from kvxopt_tpu_torch import ConeDims
+    from kvxopt_tpu_torch.parallel import batched_lp_solver, batched_qp_solver
+    card, cpu = {"qp": [], "lp": []}, {"qp": [], "lp": []}
+    ns = []
+
+    def sweep(n):
+        qp = [np.stack(a) for a in zip(*(large_problem(s, n, 2 * n)
+                                         for s in SEEDS))]
+        lp = [np.stack(a) for a in zip(*(orthant_lp(s, n) for s in SEEDS))]
+        for name, solve, data in (
+                ("qp", batched_qp_solver(ConeDims(l=2 * n), "chol2"), qp),
+                ("lp", batched_lp_solver(ConeDims(l=2 * n)), lp)):
+            on = [[torch.from_numpy(a).to(d) for a in data]
+                  for d in (dev, torch.device("cpu"))]
+            tc, tp, oc, op = card_and_cpu(lambda: solve(*on[0]),
+                                          lambda: solve(*on[1]))
+            st = 5 if name == "qp" else 7
+            check(bool((oc[st].cpu() == op[st]).all()) and
+                  (n not in DISPATCH_NB or bool((op[st] == 1).all())),
+                  f"dispatch (b) {name} n={n}: statuses {oc[st].tolist()} "
+                  f"on the card, {op[st].tolist()} on the CPU")
+            card[name].append(tc)
+            cpu[name].append(tp)
+            print(f"dispatch (b) batched {name} B={B} n={n} m={2 * n} (order "
+                  f"{3 * n}): card "
+                  f"{tc:.4f} s, cpu {tp:.4f} s (warm median of "
+                  f"{DISPATCH_REPS})", flush=True)
+        ns.append(3 * n)
+
+    for n in DISPATCH_NB:
+        sweep(n)
+    for n in DISPATCH_NB_MORE:
+        if card["qp"][-1] < cpu["qp"][-1] and card["lp"][-1] < cpu["lp"][-1]:
+            break
+        sweep(n)
+    return crossover(ns, card, cpu), ns
+
+
+def dispatch_kernels(dev):
+    """Phase 18(c): K1, K2 (k=1) and K3 (k=n) against cholesky_ex,
+    cholesky_solve and solve_triangular at B=16 over DISPATCH_NK, host
+    median of 20 each -> the n from which the factor and its two solves
+    together (the sum of the three) are faster on the kernels at every
+    larger n."""
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    kern = {"K1": [], "K2": [], "K3": []}
+    lib = {"K1": [], "K2": [], "K3": []}
+    for n in DISPATCH_NK:
+        K = spd_batch(B, n, 12, dev)
+        L, Dinv = cl.batched_cholesky_ls(K)
+        b = torch.randn((B, n), device=dev)
+        R = torch.randn((B, n, n), device=dev)
+        rows = (("K1", lambda: cl.batched_cholesky_ls(K),
+                 lambda: torch.linalg.cholesky_ex(K)),
+                ("K2", lambda: cl.chol_solve_ls(L, Dinv, b),
+                 lambda: torch.cholesky_solve(b[..., None], L)),
+                ("K3", lambda: cl.tri_solve_ls(L, Dinv, R),
+                 lambda: torch.linalg.solve_triangular(L, R, upper=False)))
+        for name, fk, fl in rows:
+            kern[name].append(median_ms(fk))
+            lib[name].append(median_ms(fl))
+        tk, tl = (sum(t[k][-1] for k in t) for t in (kern, lib))
+        print(f"dispatch (c) B={B} n={n}: " + ", ".join(
+            f"{k} {kern[k][-1]:.4f} ms vs {lb} {lib[k][-1]:.4f} ms"
+            for k, lb in (("K1", "cholesky_ex"), ("K2", "cholesky_solve"),
+                          ("K3", "solve_triangular"))) +
+            f"; factor + solves {tk:.4f} ms vs {tl:.4f} ms (host, medians "
+            "of 20)", flush=True)
+    total = ({"all": [sum(v) for v in zip(*t.values())]} for t in (kern, lib))
+    return crossover(DISPATCH_NK, *total)
+
+
+def dispatch_workloads(dev):
+    """Phase 18(e): the repo's own single-instance solves that a size
+    rule could route, numpy data as phases 13 and 15 give them: phase
+    13's gp and acent2 solves and its l+q+s cpl, and phase 15's five PWL
+    models through op.solve, each on the card and on the CPU, warm median
+    of DISPATCH_REPS_E, beside its sizes: n variables, mnl nonlinear
+    constraints, m rows of G, p rows of A, their sum the KKT order that
+    routes it, and the route the default thresholds give it."""
+    from kvxopt_tpu_torch import config
+
+    def on_cpu(fn):
+        def call():
+            with config.using_device("cpu"):
+                return fn()
+        return call
+    calls = nonlinear_calls(dev)
+    cpu_calls = nonlinear_calls(torch.device("cpu"))
+    rows = []
+    for name in ("gp userguide", "gp seeded"):
+        K, F, _ = gp_userguide() if name == "gp userguide" else gp_data()
+        rows.append((name, calls[name], on_cpu(cpu_calls[name]),
+                     (F.shape[1], len(K) - 1, 0, 0)))
+    for name, sizes in (("cp acent2", (3, 1, len(ACENT2_H), 0)),
+                        ("cpl l+q+s+ball", (N, 1, M, 0))):
+        rows.append((name, calls[name], on_cpu(cpu_calls[name]), sizes))
+    for name, (prob, _) in pwl_models().items():
+        c, _, G, _, A = prob._build_lp()[:5]
+        rows.append((f"op.solve {name}", prob.solve, on_cpu(prob.solve),
+                     (len(c), 0, G.shape[0], 0 if A is None else A.shape[0])))
+    for name, fn, cpu_fn, (n, mnl, m, p) in rows:
+        tc, tp, _, _ = card_and_cpu(fn, cpu_fn, reps=DISPATCH_REPS_E)
+        order = n + mnl + m + p
+        route = "cpu" if order < config.HOST_DISPATCH else "card"
+        print(f"dispatch (e) {name}: n={n} mnl={mnl} m={m} p={p} (order "
+              f"{order}): card {1e3 * tc:.4f} ms, cpu {1e3 * tp:.4f} ms (warm "
+              f"median of {DISPATCH_REPS_E}); the default thresholds send it "
+              f"to the {route}, the {'card' if tc < tp else 'cpu'} is "
+              "faster", flush=True)
+
+
+DISPATCH_OFF_CHECK = """
+import importlib, os, sys
+import numpy as np
+import chip_smoke as c
+from kvxopt_tpu_torch import config as cfg, solvers
+lp = c.userguide_data()[0]
+for value, want in (("0", "cuda"), (sys.argv[1], "cpu")):
+    os.environ["KVXOPT_TPU_HOST_DISPATCH"] = value
+    cfg = importlib.reload(cfg)
+    got = solvers.lp(*lp)["x"].device.type
+    print(f"KVXOPT_TPU_HOST_DISPATCH={value}: thresholds "
+          f"{cfg.host_dispatch_threshold}, "
+          f"{cfg.host_dispatch_threshold_batched}; dispatch_device(1) "
+          f"{cfg.dispatch_device(1)}, dispatch_device_batched(1) "
+          f"{cfg.dispatch_device_batched(1)}; userguide lp on {got}")
+    assert got == want, (value, got)
+    if value == "0":
+        assert cfg.dispatch_device(1) is None
+        assert cfg.dispatch_device_batched(1) is None
+"""
+
+
+def dispatch_routes(dev):
+    """Phase 18(d): the routing checks, both thresholds ROUTE_T."""
+    from kvxopt_tpu_torch import ConeDims, solvers
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch.parallel import batched_lp_solver, batched_qp_solver
+    lp, socp, sdp = userguide_data()[:3]
+    P, q, G, h = large_problem(0)
+    calls = {
+        "lp userguide n=2": (lambda: solvers.lp(*lp), "cpu"),
+        "socp userguide n=3": (lambda: solvers.socp(
+            socp[0], Gq=socp[1], hq=socp[2]), "cpu"),
+        "sdp userguide n=3": (lambda: solvers.sdp(
+            sdp[0], Gs=sdp[1], hs=sdp[2]), "cpu"),
+        f"coneqp orthant n={N}": (lambda: solvers.coneqp(
+            P, q, G, h, {"l": M}), "cuda")}
+    for label, (fn, want) in calls.items():
+        set_thresholds(0, 0)
+        ref = fn()
+        set_thresholds(ROUTE_T, ROUTE_T)
+        sol = fn()
+        check(ref["x"].device.type == "cuda" and
+              sol["x"].device.type == want,
+              f"dispatch (d) {label}: on {sol['x'].device}, expected {want}")
+        same_solution(label, sol, ref)
+
+    n = 32
+    host = [np.stack(a) for a in zip(*(orthant_lp(s, n) for s in SEEDS))]
+    data = [torch.from_numpy(a).to(dev) for a in host]
+    solve = batched_lp_solver(ConeDims(l=2 * n))
+    set_thresholds(0, 0)
+    ref = solve(*data)
+    set_thresholds(ROUTE_T, ROUTE_T)
+    for label, args, want in (("numpy", host, "cpu"),
+                              ("CUDA tensors", data, "cuda")):
+        out = solve(*args)
+        xsz = [torch.cat([o[k] / o[4][:, None] for k in (0, 2, 3)], 1).cpu()
+               for o in (out, ref)]
+        dx = float(((xsz[0] - xsz[1]).norm(dim=1) /
+                    (1 + xsz[1].norm(dim=1))).max())
+        its = [o[6].cpu() for o in (out, ref)]
+        print(f"dispatch (d) batched lp B={B} n={n}, {label}: results on "
+              f"{out[0].device.type}, iterations {its[0].tolist()} (card "
+              f"{its[1].tolist()}), max |(x,s,z)/tau - card's|/(1+|card's|) "
+              f"{dx:.3e} (tol 1e-6)", flush=True)
+        check(all(a.device.type == want for a in out[:8]) and
+              bool((out[7].cpu() == ref[7].cpu()).all()) and
+              bool(((its[0] - its[1]).abs() <= 1).all()) and dx <= 1e-6,
+              f"dispatch (d) batched lp, {label}: not on {want}, or differs "
+              "from the card")
+
+    # a mixed strategy given numpy data, and f32 chol2 given CUDA tensors,
+    # both below the threshold: each stays on the card and runs K1
+    qp = [np.stack(a) for a in zip(*(large_problem(s, n, 2 * n)
+                                     for s in SEEDS))]
+    for strategy, label, args in (
+            ("chol2_mixed_nofb", "numpy", qp),
+            ("chol2", "f32 CUDA tensors",
+             [torch.from_numpy(a).to(dev, torch.float32) for a in qp])):
+        torch.cuda.synchronize()
+        cl.reset_launches()
+        out = batched_qp_solver(ConeDims(l=2 * n), strategy)(*args)
+        torch.cuda.synchronize()
+        launches = dict(cl.LAUNCHES)
+        print(f"dispatch (d) batched qp {strategy}, {label}, B={B} n={n}: "
+              f"results on {out[0].device.type}, launches {launches}",
+              flush=True)
+        check(out[0].device.type == "cuda" and launches["K1"] > 0,
+              f"dispatch (d) {strategy}, {label}: left the card or ran no K1")
+
+    set_thresholds(0, 0)
+    sol = solvers.lp(*lp)
+    check(sol["x"].device.type == "cuda",
+          "dispatch (d) threshold 0: the userguide lp left the card")
+    print("dispatch (d) thresholds 0: userguide lp on the card", flush=True)
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KVXOPT_TPU_HOST_DISPATCH")}
+    out = subprocess.run(
+        [sys.executable, "-c", DISPATCH_OFF_CHECK, str(ROUTE_T)], env=env,
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    print(out.stdout.strip(), flush=True)
+    check(out.returncode == 0, "dispatch (d) KVXOPT_TPU_HOST_DISPATCH in a "
+          f"fresh process: {out.stderr.strip()[-2000:]}")
+
+
+def dispatch(dev):
+    """Phase 18, "dispatch": (a)-(c) the sweeps and (e) the repo's own
+    solves, each with dispatch off, then (d) the routing checks; the
+    measured crossovers beside the defaults of config.py and
+    ops/ipm_chol.py (0: no threshold there).  Restores the defaults."""
+    from kvxopt_tpu_torch import config
+    print(f"dispatch: host {cpu_model()}, torch.get_num_threads() "
+          f"{torch.get_num_threads()}, card "
+          f"{sh(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'])}",
+          flush=True)
+    set_thresholds(0, 0)
+    x1, n1s = dispatch_single(dev)
+    stamp("phase 18(a)")
+    xb, nbs = dispatch_batched(dev)
+    stamp("phase 18(b)")
+    xk = dispatch_kernels(dev)
+    stamp("phase 18(c)")
+    dispatch_workloads(dev)
+    stamp("phase 18(e)")
+    for label, x, ns, default in (
+            ("host_dispatch_threshold", x1, n1s, config.HOST_DISPATCH),
+            ("host_dispatch_threshold_batched", xb, nbs,
+             config.HOST_DISPATCH_BATCHED),
+            ("ops/ipm_chol.py: the n below which torch.linalg's factor and "
+             "solves win", xk, DISPATCH_NK, 0)):
+        got = threshold_of(x, ns)
+        print(f"dispatch crossover {label}: measured {got} (card faster from "
+              f"{x} on, over {list(ns)}), default {default}"
+              + ("" if got == default else " (differs)"), flush=True)
+    dispatch_routes(dev)
+    set_thresholds(config.HOST_DISPATCH, config.HOST_DISPATCH_BATCHED)
+    stamp("phase 18(d)")
+
+
 def cpu_solve(name, threads):
     """In a worker process: the phase's problems on CPU tensors, the
     kernels' plain versions -> (x, iterations, status, seconds); x over
@@ -3116,7 +3546,12 @@ def main():
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     dev = torch.device("cuda:0")
+    # phases 1-17 measure the card: executor dispatch off, here and in
+    # every process they start; phase 18 restores it
+    for var in ("KVXOPT_TPU_HOST_DISPATCH", "KVXOPT_TPU_HOST_DISPATCH_BATCHED"):
+        os.environ[var] = "0"
     phase0()
+    set_thresholds(0, 0)
     stamp("phase 0")
     # the longest CPU solve first, then the two short ones of phases 11
     # and 12, so that the other two start once those are done
@@ -3171,6 +3606,8 @@ def main():
     POOL.close()
     POOL.join()
     stamp("phases 4, 6, 10 and the CPU sides of 11-15")
+    dispatch(dev)
+    stamp("phase 18")
 
     launches["K4"] = k4_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",

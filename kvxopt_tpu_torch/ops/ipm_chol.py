@@ -9,8 +9,14 @@ The factor object is (L (B,n,n), Dinv (B,nb,128,128)), the layout the
 JAX custom_vmap rules return.  Dispatch: an f32 factor goes to
 ops/chol_ls.py, which runs kernel K1/K2/K3 for a CUDA tensor and the
 plain version for a CPU tensor; an f64 factor is torch.linalg (the JAX
-package likewise left f64 to XLA).  Unlike the JAX package there is no
-size threshold: the kernels run at every n on the card.
+package likewise left f64 to XLA).  Unlike the JAX package, whose
+_pallas_ok leaves f32 factors below n = 256 to XLA on the TPU, there is
+no size threshold: the kernels run at every n on the card.  On an NVIDIA
+H100 80GB HBM3 at 700 W (phase 18(c) of chip_smoke.py, B = 16, host
+medians of 20), K1 + K2 (k = 1) + K3 (k = n) took 0.1135 ms at n = 8
+against 0.1470 for cholesky_ex + cholesky_solve + solve_triangular,
+0.0982 against 0.1580 at n = 32 and 0.2173 against 0.7004 at n = 256:
+the kernels' factor and solves win at every n from 8 to 256.
 """
 
 from __future__ import annotations

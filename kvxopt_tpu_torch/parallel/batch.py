@@ -7,8 +7,12 @@ Both IPMs are here: the cone QP (make_qp_solver) and the self-dual
 cone LP (make_lp_solver), with the two-pass mixed driver and the
 sequential one (batched_qp_solver_seq).  With mesh= the batch drivers
 deal the batch over the mesh's 'batch' axis (mesh.py): each rank solves
-its slice on its device and every rank gets the whole batch back.  The
-host-dispatch wrapper is not ported (ROADMAP.md, Queue 1 item 5).
+its slice on its device and every rank gets the whole batch back.
+Without a mesh, batched_qp_solver and batched_lp_solver go through
+_dispatched_batch: array-like inputs whose per-instance KKT system has
+an order n + m + p below config.host_dispatch_threshold_batched are
+placed on the CPU and solved there; tensors keep their device, and the
+mixed strategies are never routed.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import kkt
+from .. import config, kkt
 from ..cones import ConeDims
 from ..solvers._conelp import _conelp_core
 from ..solvers.coneprog import (OPTIMAL, Options, _coneqp_core, _matrix_ops,
@@ -144,19 +148,54 @@ def _vmap_facref(options):
     return o._replace(facref="vmap") if o.facref is None else o
 
 
+def _dispatched_batch(solve, nargs_for_n, kktsolver=None):
+    """solve(*args) with executor dispatch at call time, as the front
+    ends' coneprog._dispatch_ctx: where the per-instance KKT order
+    n + m + p (n the last dimension of args[nargs_for_n], m the rows of
+    G, the argument after it, p the rows of A, three after it) is below
+    config.host_dispatch_threshold_batched, the call runs under
+    config.using_device(config.host_device()), so array-like inputs are
+    placed on the CPU and the results stay there.  Tensors keep their
+    device: a batch of CUDA tensors stays on the card at every size.
+
+    A mixed-precision strategy ("mixed" in kktsolver) is never routed:
+    its f32 factorizations exist to run K1-K3 on the card."""
+    mixed = isinstance(kktsolver, str) and "mixed" in kktsolver
+
+    def dispatched(*args, **kwargs):
+        A = (args[nargs_for_n + 3] if len(args) > nargs_for_n + 3
+             else kwargs.get("A"))
+        order = (np.shape(args[nargs_for_n])[-1]
+                 + np.shape(args[nargs_for_n + 1])[-2]
+                 + (0 if A is None else np.shape(A)[-2]))
+        dev = None if mixed else config.dispatch_device_batched(int(order))
+        if dev is None:
+            return solve(*args, **kwargs)
+        with config.using_device(dev):
+            return solve(*args, **kwargs)
+
+    return dispatched
+
+
 def batched_qp_solver(dims, kktsolver=None, options=None, mesh=None,
                       with_eq=False):
     """solve(P[B], q[B], G[B], h[B][, A[B], b[B]]) -> batched state;
-    with `mesh`, dealt over its 'batch' axis (_on_mesh)."""
-    return _on_mesh(make_qp_solver(dims, kktsolver, _vmap_facref(options),
-                                   with_eq), mesh)
+    with `mesh`, dealt over its 'batch' axis (_on_mesh), else routed by
+    the KKT order of q, G and A (_dispatched_batch)."""
+    solve = make_qp_solver(dims, kktsolver, _vmap_facref(options), with_eq)
+    if mesh is None:
+        return _dispatched_batch(solve, 1, kktsolver)
+    return _on_mesh(solve, mesh)
 
 
 def batched_lp_solver(dims, kktsolver=None, options=None, mesh=None):
     """solve(c[B], G[B], h[B][, A[B], b[B]]) -> batched conelp state;
-    with `mesh`, dealt over its 'batch' axis (_on_mesh)."""
-    return _on_mesh(make_lp_solver(dims, kktsolver, _vmap_facref(options)),
-                    mesh)
+    with `mesh`, dealt over its 'batch' axis (_on_mesh), else routed by
+    the KKT order of c, G and A (_dispatched_batch)."""
+    solve = make_lp_solver(dims, kktsolver, _vmap_facref(options))
+    if mesh is None:
+        return _dispatched_batch(solve, 0, kktsolver)
+    return _on_mesh(solve, mesh)
 
 
 def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
@@ -173,7 +212,12 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
     last call's pass-1 status per lane ("pass1_status") and the number
     of lanes pass 2 re-solved ("pass2_lanes").  With `mesh`, pass 1 is
     dealt over its 'batch' axis (_on_mesh) and every rank runs pass 2 on
-    the whole batch's failed lanes, as the JAX function does."""
+    the whole batch's failed lanes, as the JAX function does.  Pass 1
+    stays where its inputs are; pass 2 is a batched_qp_solver with
+    'chol2' on the failed lanes of the inputs as given, routed as
+    _dispatched_batch routes them (array-like inputs below
+    config.host_dispatch_threshold_batched to the CPU), and its lanes
+    come back to pass 1's device."""
     o = _options(options)
     if o.ozaki is None:
         o = o._replace(ozaki=True)
@@ -187,11 +231,16 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
         solve.stats["pass2_lanes"] = int(bad.numel())
         if bad.numel() == 0:
             return out
-        sout = slow(*(a[bad] for a in (P, q, G, h, *ab)))
+
+        def lanes(a):
+            if isinstance(a, torch.Tensor):
+                return a[bad.to(a.device)]
+            return np.asarray(a)[bad.cpu().numpy()]
+        sout = slow(*map(lanes, (P, q, G, h, *ab)))
 
         def merge(a, s):
             a = a.clone()
-            a[bad] = s
+            a[bad] = s.to(a.device)
             return a
         return (*map(merge, out[:6], sout[:6]),
                 type(out[6])(*map(merge, out[6], sout[6])))

@@ -34,9 +34,9 @@ from ..cones import ConeDims
 from .coneprog import (
     RUNNING, OPTIMAL, UNKNOWN, PRIMAL_INFEASIBLE, DUAL_INFEASIBLE, SINGULAR,
     _STATUS_STR, STEP, EXPON, LANES, Options, _asarray, _constraints,
-    _custom_ops, _front_end_ops, _numel, _profile_ctx, _relgap,
-    _resolve_options, _solve_device, _spaces, _start, _tree_leaves,
-    _where)
+    _custom_ops, _dispatch_ctx, _front_end_ops, _numel, _profile_ctx,
+    _relgap, _resolve_options, _solve_device, _spaces, _start,
+    _tree_leaves, _kkt_order, _veclen, _where)
 
 
 def conelp(c, G, h, dims=None, A=None, b=None, primalstart=None,
@@ -62,13 +62,22 @@ def conelp(c, G, h, dims=None, A=None, b=None, primalstart=None,
     Custom vector spaces, as in coneqp: any x* hook makes x and c
     elements of the user's space (G an operator, kktsolver the user's),
     any y* hook y and b (A an operator, b given); primalstart's x and
-    dualstart's y are then elements of those spaces."""
+    dualstart's y are then elements of those spaces.
+
+    Where the KKT system's order len(c) + len(h) + len(b) is below
+    config.host_dispatch_threshold (unknown with custom spaces or an
+    operator G), array-like inputs go to the CPU
+    (coneprog._dispatch_ctx)."""
     xops = _custom_ops(xnewcopy, xdot, xscal, xaxpy)
     yops = _custom_ops(ynewcopy, ydot, yscal, yaxpy)
-    dev = _solve_device(*_tree_leaves(c), h, G, A, *_tree_leaves(b))
-    with _profile_ctx(options, dev):
-        return _conelp_impl(c, G, h, dims, A, b, primalstart, dualstart,
-                            kktsolver, options, dev, xops, yops)
+    custom = xops is not None or yops is not None
+    order = None if (custom or callable(G)) else _kkt_order(
+        _veclen(c), _veclen(h), _veclen(b))
+    with _dispatch_ctx(order):
+        dev = _solve_device(*_tree_leaves(c), h, G, A, *_tree_leaves(b))
+        with _profile_ctx(options, dev):
+            return _conelp_impl(c, G, h, dims, A, b, primalstart, dualstart,
+                                kktsolver, options, dev, xops, yops)
 
 
 def _conelp_impl(c, G, h, dims, A, b, primalstart, dualstart, kktsolver,
@@ -800,7 +809,9 @@ def lp(c, G, h, A=None, b=None, solver=None, primalstart=None,
     (coneprog.py:2807-2838).  The routes other than the native one take
     their data to the host and return its numpy result dictionary.  With
     options['equilibrate'] the native route Ruiz-scales the LP first and
-    unscales the iterates after."""
+    unscales the iterates after.  The native route runs on the CPU where
+    the KKT system's order is below config.host_dispatch_threshold, as
+    conelp does."""
     if solver == "glpk":
         from .. import glpk
         return glpk.lp_bridge(*_on_host(c, G, h, A, b), options=options)
@@ -832,7 +843,8 @@ def lp(c, G, h, A=None, b=None, solver=None, primalstart=None,
     if options and options.get("equilibrate"):
         # Ruiz presolve for badly scaled LPs: solve the scaled problem on
         # the solve's device, then unscale the iterates
-        dev = _solve_device(c, G, h, A, b)
+        with _dispatch_ctx(_kkt_order(_veclen(c), _veclen(h), _veclen(b))):
+            dev = _solve_device(c, G, h, A, b)
         scaled = _ruiz_equilibrate(*(_host(a) for a in (c, G, h, A, b)))
         cs, Gs, hs, As, bs = (None if a is None else
                               torch.as_tensor(a, device=dev)
@@ -936,12 +948,17 @@ def socp(c, Gl=None, hl=None, Gq=None, hq=None, A=None, b=None,
     second-order cone blocks s_k = h_k - G_k x in Q (reference
     coneprog.py:3044).  The result holds zl/zq and sl/sq beside z and s.
     solver='mosek' dispatches to the MOSEK bridge (requires the mosek
-    package) on the host, as the reference (coneprog.py:3363)."""
+    package) on the host, as the reference (coneprog.py:3363).  The native
+    route picks its device as conelp does (coneprog._dispatch_ctx on the
+    KKT system's order: len(c), the rows of hl and hq, len(b)) before it
+    stacks the blocks."""
     if solver == "mosek":
         return _socp_mosek(*_on_host(c, Gl, hl, Gq, hq, A, b), options)
     dtype = _resolve_options(options)[1]
     Gq, hq = list(Gq or []), list(hq or [])
-    dev = _solve_device(c, Gl, hl, *Gq, *hq, A, b)
+    with _dispatch_ctx(_kkt_order(_veclen(c), _veclen(hl), _veclen(b),
+                                  *map(_veclen, hq))):
+        dev = _solve_device(c, Gl, hl, *Gq, *hq, A, b)
     G, h, ml, sizes = _stack_blocks(dtype, dev, Gl, hl, Gq, hq,
                                     lambda h_: h_.numel())
     sol = dict(conelp(c, G, h, ConeDims(l=ml, q=sizes), A, b,
@@ -958,7 +975,10 @@ def sdp(c, Gl=None, hl=None, Gs=None, hs=None, A=None, b=None,
     (reference coneprog.py:3597; Gs[k] columns are vectorized coefficient
     matrices, hs[k] square matrices).  The result holds zl/zs and sl/ss
     (m x m blocks) beside z and s.  solver='dsdp' routes through the
-    DSDP-interface bridge on the host (reference coneprog.py:3924)."""
+    DSDP-interface bridge on the host (reference coneprog.py:3924).  The
+    native route picks its device as conelp does (coneprog._dispatch_ctx
+    on the KKT system's order: len(c), the rows of hl, the entries of
+    each hs block, len(b)) before it stacks the blocks."""
     if solver == "dsdp":
         if A is not None:
             raise ValueError("sdp() with the solver = 'dsdp' option does "
@@ -980,7 +1000,9 @@ def sdp(c, Gl=None, hl=None, Gs=None, hs=None, A=None, b=None,
         return _dsdp_result(status, x, zl, zs, c, Gl, hl, Gs, hs)
     dtype = _resolve_options(options)[1]
     Gs, hs = list(Gs or []), list(hs or [])
-    dev = _solve_device(c, Gl, hl, *Gs, *hs, A, b)
+    with _dispatch_ctx(_kkt_order(_veclen(c), _veclen(hl), _veclen(b),
+                                  *map(_veclen, hs))):
+        dev = _solve_device(c, Gl, hl, *Gs, *hs, A, b)
     G, h, ml, sizes = _stack_blocks(dtype, dev, Gl, hl, Gs, hs,
                                     lambda h_: h_.shape[0])
     sol = dict(conelp(c, G, h, ConeDims(l=ml, s=sizes), A, b,

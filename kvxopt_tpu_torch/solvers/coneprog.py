@@ -15,9 +15,14 @@ live here; coneqp, conelp, cpl and cp take them, and the batched cores
 reach a space only through _LaneSpace (dense lanes) or _UserSpace (a
 custom space, a batch of one).  options['profile'] = <directory> runs a
 coneqp or conelp solve under torch.profiler and writes its Chrome trace
-there (_profile_ctx).  Executor dispatch is not ported yet (ROADMAP.md,
-Queue 1).  The `solver=` routes (osqp, gurobi, mosek) live beside the conelp
-ones in _conelp.py.
+there (_profile_ctx).  Executor dispatch: before any array is placed,
+a front end sizes its solve from shape metadata alone (_veclen): the
+order n + m + p of its KKT system (_kkt_order).  Below
+config.host_dispatch_threshold it runs the solve under
+config.using_device(config.host_device()) (_dispatch_ctx), so array-like
+inputs go to the CPU; tensors passed in keep their device.  The
+`solver=` routes (osqp, gurobi, mosek) live beside the conelp ones in
+_conelp.py and are not routed, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -140,6 +145,49 @@ def _asarray(x, dtype, device, shape=None, name="argument"):
         raise ValueError(f"{name} has shape {tuple(a.shape)}, expected "
                          f"{tuple(shape)}")
     return a
+
+
+def _veclen(x):
+    """Element count of a vector-like argument from its shape metadata
+    alone (numpy arrays, tensors, matrix/spmatrix through their .size
+    tuple, lists and tuples by len); None where it cannot be read."""
+    if x is None:
+        return None
+    try:
+        shp = getattr(x, "shape", None)
+        if shp is not None and not callable(shp):
+            return int(np.prod([int(d) for d in shp])) if len(shp) else 1
+        sz = getattr(x, "size", None)
+        if isinstance(sz, tuple):
+            return int(sz[0]) * int(sz[1])
+        return len(x)
+    except Exception:
+        return None
+
+
+def _kkt_order(n, *rows):
+    """The order of a solve's KKT system from the element counts of its
+    variable (n) and of its constraint blocks (h, b, the nonlinear rows),
+    each from _veclen: n + m + p.  None where n is unknown; an unknown
+    block counts 0."""
+    if n is None:
+        return None
+    return n + sum(r for r in rows if r is not None)
+
+
+def _dispatch_ctx(*sizes):
+    """The executor context of a solve whose KKT system has order
+    ~max(sizes) (_kkt_order; None entries are unknown sizes): the host
+    (config.using_device(config.host_device())) below
+    config.host_dispatch_threshold, else a null context.  See
+    config.dispatch_device."""
+    known = [s for s in sizes if s is not None]
+    if not known:
+        return contextlib.nullcontext()
+    dev = config.dispatch_device(max(known))
+    if dev is None:
+        return contextlib.nullcontext()
+    return config.using_device(dev)
 
 
 def _profile_ctx(options, device):
@@ -740,13 +788,21 @@ def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None, initvals=None,
     with an operator A.  The hooks are functional: xscal(alpha, u) ->
     alpha u, xaxpy(u, v, alpha) -> alpha u + v, xdot(u, v) -> a scalar;
     unset hooks default to the elementwise ones over the leaves.  initvals,
-    where given, must then hold x and y."""
+    where given, must then hold x and y.
+
+    Where the KKT system's order len(q) + len(h) + len(b) is below
+    config.host_dispatch_threshold (unknown with custom spaces or operator
+    P or G), array-like inputs go to the CPU (_dispatch_ctx)."""
     xops = _custom_ops(xnewcopy, xdot, xscal, xaxpy)
     yops = _custom_ops(ynewcopy, ydot, yscal, yaxpy)
-    dev = _solve_device(*_tree_leaves(q), h, G, P, A, *_tree_leaves(b))
-    with _profile_ctx(options, dev):
-        return _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver,
-                            options, dev, xops, yops)
+    custom = xops is not None or yops is not None
+    order = None if (custom or callable(G) or callable(P)) else _kkt_order(
+        _veclen(q), _veclen(h), _veclen(b))
+    with _dispatch_ctx(order):
+        dev = _solve_device(*_tree_leaves(q), h, G, P, A, *_tree_leaves(b))
+        with _profile_ctx(options, dev):
+            return _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver,
+                                options, dev, xops, yops)
 
 
 def _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver, options, dev,

@@ -36,9 +36,12 @@ If the condensed strategy's directions come out non-finite
 jnp.linalg.cholesky does), the step is solved again with the
 regularized full 3x3 `ldl` factorization, on the same device.
 
-Unlike the JAX front ends, these do not route a solve to another
-executor by its size: that dispatch policy is not ported yet
-(ROADMAP.md, Queue 1 item 5).  Array-like data goes to
+Each front end first sizes its solve from shape metadata: the order of
+its KKT system, the variables (cpl: len(c), cp: len(x0) from F(), gp:
+F's columns) plus the nonlinear rows, len(h) and len(b)
+(coneprog._kkt_order).  Below config.host_dispatch_threshold it runs
+the solve with config.default_device the CPU (coneprog._dispatch_ctx),
+before any array is placed.  Array-like data goes to
 config.default_device, tensors keep their device.
 """
 
@@ -53,8 +56,9 @@ from ..cones import ConeDims
 from ..kkt import _mv, _tmv
 from .coneprog import (
     OPTIMAL, UNKNOWN, SINGULAR, _STATUS_STR, STEP, EXPON, _AsGiven, _Lanes,
-    _asarray, _instance_factor, _instance_op, _make_vecops, _numel, _relgap,
-    _resolve_options, _solve_device, _tree_leaves)
+    _asarray, _dispatch_ctx, _instance_factor, _instance_op, _make_vecops,
+    _kkt_order, _numel, _relgap, _resolve_options, _solve_device,
+    _tree_leaves, _veclen)
 
 # line-search constants (reference cvxprog.py:385-388)
 BETA = 0.5
@@ -145,8 +149,29 @@ def cpl(c, F, G=None, h=None, dims=None, A=None, b=None, kktsolver=None,
     factor, and the oracle's Df and H operators: Df(u) maps x-space to
     R^mnl, Df(v, trans=True) back, H(u) x-space to x-space.
 
-    Unlike the JAX front end, cpl does not route small problems to
-    another executor (ROADMAP.md, Queue 1 item 5)."""
+    Where the KKT system's order len(c) + mnl (F()[0]) + len(h) +
+    len(b) is below config.host_dispatch_threshold (unknown with custom
+    spaces or an operator G), array-like inputs go to the CPU before any
+    is placed (coneprog._dispatch_ctx); cp and gp reach cpl through their
+    own routing."""
+    custom = any(f is not None for f in (xnewcopy, xdot, xscal, xaxpy,
+                                         ynewcopy, ydot, yscal, yaxpy))
+    order = None
+    if not (custom or callable(G)):
+        try:
+            mnl = int(F()[0])
+        except Exception:
+            mnl = None
+        order = _kkt_order(_veclen(c), mnl, _veclen(h), _veclen(b))
+    with _dispatch_ctx(order):
+        return _cpl_impl(c, F, G, h, dims, A, b, kktsolver, options,
+                         xnewcopy, xdot, xscal, xaxpy, ynewcopy, ydot,
+                         yscal, yaxpy)
+
+
+def _cpl_impl(c, F, G, h, dims, A, b, kktsolver, options, xnewcopy, xdot,
+              xscal, xaxpy, ynewcopy, ydot, yscal, yaxpy):
+    """cpl on the device its inputs and config.default_device give."""
     o, dtype = _resolve_options(options)
     custom_x = any(f is not None for f in (xnewcopy, xdot, xscal, xaxpy))
     custom_y = any(f is not None for f in (ynewcopy, ydot, yscal, yaxpy))
@@ -634,8 +659,29 @@ def cp(F, G=None, h=None, dims=None, A=None, b=None, kktsolver=None,
 
     With custom x-space hooks the epigraph variable is the tuple (x, t),
     with hooks built from the given ones, and a user kktsolver sees the
-    extended operators.  Unlike the JAX front end, cp does not route
-    small problems to another executor (ROADMAP.md, Queue 1 item 5)."""
+    extended operators.
+
+    Where the KKT system's order len(x0) + mnl (F() gives both) +
+    len(h) + len(b) is below config.host_dispatch_threshold (unknown with
+    custom x hooks or where F() raises), array-like inputs go to the CPU
+    before any is placed (coneprog._dispatch_ctx); x0 given as a tensor
+    keeps its device."""
+    order = None
+    if all(f is None for f in (xnewcopy, xdot, xscal, xaxpy)):
+        try:
+            mnl, x0 = F()
+            order = _kkt_order(_veclen(x0), int(mnl), _veclen(h),
+                               _veclen(b))
+        except Exception:
+            order = None
+    with _dispatch_ctx(order):
+        return _cp_impl(F, G, h, dims, A, b, kktsolver, options, xnewcopy,
+                        xdot, xscal, xaxpy, ynewcopy, ydot, yscal, yaxpy)
+
+
+def _cp_impl(F, G, h, dims, A, b, kktsolver, options, xnewcopy, xdot, xscal,
+             xaxpy, ynewcopy, ydot, yscal, yaxpy):
+    """cp on the device its inputs and config.default_device give."""
     _, dtype = _resolve_options(options)
     if any(f is not None for f in (xnewcopy, xdot, xscal, xaxpy)):
         return _cp_custom(F, G, h, dims, A, b, kktsolver, options, dtype,
@@ -805,9 +851,24 @@ def gp(K, F, g, G=None, h=None, A=None, b=None, kktsolver=None,
     (cvxprog.py:2102-2154): the max-shifted value, the gradient F_i'w
     with softmax weights w, the Hessian F_i'(diag(w) - ww')F_i, all
     blocks at once (one segment max and a few products per call).  F and
-    g are arrays or tensors.  Unlike the JAX front end, gp does not
-    route small problems to another executor (ROADMAP.md, Queue 1 item
-    5)."""
+    g are arrays or tensors.
+
+    Where the KKT system's order, F's columns + len(K) - 1 (the
+    posynomial constraints) + len(h) + len(b), is below
+    config.host_dispatch_threshold, array-like inputs go to the CPU
+    before any is placed (coneprog._dispatch_ctx)."""
+    try:
+        shp = getattr(F, "shape", None)
+        n = int(shp[1]) if shp is not None and not callable(shp) \
+            else int(F.size[1])
+    except Exception:
+        n = None
+    with _dispatch_ctx(_kkt_order(n, len(K) - 1, _veclen(h), _veclen(b))):
+        return _gp_impl(K, F, g, G, h, A, b, kktsolver, options)
+
+
+def _gp_impl(K, F, g, G, h, A, b, kktsolver, options):
+    """gp on the device its inputs and config.default_device give."""
     _, dtype = _resolve_options(options)
     dev = _solve_device(F, g, G, h, A, b)
     K = [int(k) for k in K]
