@@ -15,8 +15,9 @@ chol2_mixed's per-lane f64 fallback, misc on the card and
 options['profile']; and custom vector spaces in coneqp/conelp with the
 multi-device layer over torch.distributed (sharded_kkt_solver,
 dist_cholesky, arrow_kkt_factor, mesh=) in spawned worlds on the card;
-and the executor dispatch: the crossovers between the card and the CPU
-that set its thresholds, and its routes.
+the executor dispatch: the crossovers between the card and the CPU
+that set its thresholds, and its routes; and the repo's example
+programs (kvxopt_tpu_torch.examples and its cvxbook problems).
 
     python3 chip_smoke.py
 
@@ -184,6 +185,26 @@ Phases (any failure exits non-zero and prints no result):
      at world 2 each rank on its 8 lanes: phase 3's status and
      iterations, x within 1e-12 (1 + |x|), K1-K3 launched (world 1's
      counts are launches_phase17); each part's wall;
+ 19. "examples" (after 17, before the CPU comparisons and 18): the
+     port's example programs (kvxopt_tpu_torch.examples: the 21 scripts
+     of examples/ other than weak_scaling_sharded through main(), and
+     the 24 cvxbook problems of examples.book on <name>_data()), numpy
+     data and no device named: (a) with both thresholds 0, each call's
+     values as tests/test_examples.py and the JAX book tests assert them
+     (check_example), its result tensors on the card (portfolio and
+     covsel give numpy: device time seen by the profiler instead;
+     smoothrec and inputdesign run lapack, a host facade: no device
+     work), the card's warm median of 3, and K1-K4's counts over all of them (0: the examples solve in
+     f64); against the CPU, in the worker that runs "examples"
+     (examples_cpu, config.using_device("cpu"), its warm median of 3):
+     every solve's status, iterations within 1, x within 1e-6 (1 + |x|);
+     (b) with config.py's thresholds, the route each call's solves take
+     (KKT order and device), then l1regls at L1REGLS_WIDE (operator P
+     and G: never routed) and mcsdp at n = MCSDP_WIDE (order 10100) on
+     the card, checked against the CPU as in (a), and mcsdp at
+     n = MCSDP_SMALL (order 420) on the CPU; thresholds 0 again; (c)
+     weak_scaling_sharded's factor+solve step at world 1 over NCCL
+     (rows 2048, n 256): its row, and ux within 1e-8 of the dense solve;
  18. "dispatch", after the CPU workers have ended, the host CPU's model
      and torch's thread count printed: (a) solvers.qp and solvers.lp
      with numpy data on large_problem(0, n, 2n) (the LP's c = -G'z0,
@@ -216,14 +237,15 @@ Phases (any failure exits non-zero and prints no result):
      the userguide LP stays on the card; in a fresh process
      KVXOPT_TPU_HOST_DISPATCH=0 turns dispatch off (the LP on the card)
      and ROUTE_T turns it on.
-Phases 1-17 run with executor dispatch off (both thresholds 0, in this
+Phases 1-17 and 19 run with executor dispatch off (both thresholds 0, in this
 process and, through the environment, in every process it starts), so
-that they measure the card; phase 18 sets the thresholds itself and
-restores config.py's defaults at its end.
-The CPU solves of phases 4, 6, 10 and 11-15 run in three worker
+that they measure the card; phase 19(b) sets config.py's thresholds
+for its route checks and 0 again after them; phase 18 sets the
+thresholds itself and restores config.py's defaults at its end.
+The CPU solves of phases 4, 6, 10, 11-15 and 19 run in three worker
 processes (spawned after the build, at lower priority, a few CPU threads
 each; phase 10's first, then the short ones of 11-15, then phases 4
-and 6) beside the card's phases, and are compared with the
+and 6, then 19's) beside the card's phases, and are compared with the
 card's solves at the end; each phase prints the seconds since the
 start.  Phases 11-13 and 15 run the f64 chol2, chol, qr and ldl
 strategies (cuSOLVER and torch) and the ADMM's torch operations, which
@@ -1312,7 +1334,11 @@ def breakdown(name, dims, args):
               f"{walls[pname[:6]]:.4f} s, iterations "
               f"{out[4].tolist()}, status {out[5].tolist()}")
         iters = iters or int(out[4].max())
-    wall, kern, calls, _, why = trace(lambda: fast(*args), host_ops=True)
+    # the host's operators only where pass 1 calls torch.linalg's eigh
+    # (s cones): their trace is slow to read, and the CUDA runtime's
+    # calls are in every trace
+    wall, kern, calls, _, why = trace(lambda: fast(*args),
+                                      host_ops=bool(dims.s))
     busy = sum(e.self_device_time_total for e in kern) / 1e6
     if why or busy == 0:
         print(f"{name} profile pass 1: device time not measured "
@@ -3083,6 +3109,598 @@ def multi_device(dev, gpu3):
     return launches
 
 
+# phase 19, "examples": the repo's example programs on the card
+# (kvxopt_tpu_torch.examples): every script of examples/ and every cvxbook
+# problem of examples.book, with numpy data and no device named
+L1REGLS_WIDE = (100, 1000)   # (b) l1regls (m, n): operator P and G
+MCSDP_WIDE, MCSDP_SMALL = 100, 20   # (b) mcsdp n: KKT order n + n^2
+WS_ROWS, WS_N = 2048, 256    # (c) weak_scaling_sharded's defaults
+# lapack is a host facade in both packages: these do no device work
+HOST_ONLY = ("book smoothrec", "book inputdesign")
+
+
+def example_calls():
+    """Phase 19's calls in order: name -> fn() giving the call's output as
+    a user gets it.  The scripts of examples/ (weak_scaling_sharded is
+    (c)) through their main() at its defaults; each book problem on its
+    <name>_data(), made here once."""
+    import importlib
+    from kvxopt_tpu_torch.examples import EXAMPLES
+    from kvxopt_tpu_torch.examples.book import PROBLEMS
+    calls = {}
+    for name in EXAMPLES:
+        if name != "weak_scaling_sharded":
+            calls[name] = importlib.import_module(
+                f"kvxopt_tpu_torch.examples.{name}").main
+    for mod_name, names in PROBLEMS.items():
+        mod = importlib.import_module(
+            f"kvxopt_tpu_torch.examples.book.{mod_name}")
+        for name in names:
+            data = getattr(mod, f"{name}_data")()
+            calls[f"book {name}"] = (
+                lambda f=getattr(mod, name), d=data: f(d))
+    return calls
+
+
+def _result_dicts(out):
+    """The solvers' result dicts inside an example's output, in order."""
+    if isinstance(out, dict):
+        if "status" in out and "iterations" in out:
+            return [out]
+        return [r for v in out.values() for r in _result_dicts(v)]
+    if isinstance(out, (list, tuple)):
+        return [r for v in out for r in _result_dicts(v)]
+    return []
+
+
+def _row(status, iterations, x):
+    return (str(status), int(iterations),
+            None if x is None else np.asarray(
+                x.detach().cpu() if isinstance(x, torch.Tensor) else x,
+                dtype=np.float64).ravel())
+
+
+def example_rows(name, out, lps):
+    """(status, iterations, x) of every solve a call made: the lp calls of
+    op.solve (lps), then the result dicts of its output; portfolio's
+    batch lanes and its sweep; covsel's Newton loop; the lapack facades'
+    solutions."""
+    if name == "portfolio":
+        return ([_row(s, 0, x) for s, x in zip(out["batch_status"],
+                                                out["batch_x"])] +
+                [_row("sweep", 0, np.r_[out["returns"], out["risks"]])])
+    if name == "book covsel":
+        return [_row("optimal" if out["decrement"] < 1e-10 else "unknown",
+                     out["iterations"], out["K"])]
+    if name in HOST_ONLY:
+        xs = out if isinstance(out, list) else [out]
+        return [_row("host", 0, x) for x in xs]
+    return ([_row(s["status"], s["iterations"], s["x"]) for s in lps] +
+            [_row(s["status"], s["iterations"], s["x"])
+             for s in _result_dicts(out)])
+
+
+def _result_devices(out, lps):
+    return {s["x"].device.type for s in list(lps) + _result_dicts(out)
+            if isinstance(s.get("x"), torch.Tensor)}
+
+
+def need(cond, what):
+    if not cond:
+        raise AssertionError(what)
+
+
+def _xs(sol):
+    return sol["x"].detach().cpu().numpy().ravel()
+
+
+def _near(a, b, atol, what):
+    need(np.abs(np.asarray(a, dtype=float) - np.asarray(b, dtype=float))
+         .max() <= atol, what)
+
+
+def _robust_residual(A, Aps, b, x, nsamp=400):
+    """max over ||u|| <= 1 of ||(A + sum u_i Ap_i) x - b|| by polished
+    sampling (tests/test_book_examples4.py)."""
+    r0 = A @ x - b
+    P = np.stack([Ap @ x for Ap in Aps], axis=1)
+    rng = np.random.default_rng(0)
+    best = np.linalg.norm(r0)
+    for _ in range(nsamp):
+        u = rng.standard_normal(P.shape[1])
+        u /= np.linalg.norm(u)
+        for _ in range(50):
+            g = P.T @ (r0 + P @ u)
+            if np.linalg.norm(g) < 1e-14:
+                break
+            u2 = g / np.linalg.norm(g)
+            done = np.linalg.norm(u2 - u) < 1e-12
+            u = u2
+            if done:
+                break
+        best = max(best, np.linalg.norm(r0 + P @ u))
+    return best
+
+
+def _sphere_ls(A, b, alpha, minimize):
+    """min/max ||Ax-b||^2 over ||x||^2 = alpha by bisection on the
+    multiplier (tests/test_book_examples5.py)."""
+    H, g = A.T @ A, A.T @ b
+    w = np.linalg.eigvalsh(H)
+    lo, hi = (-w[0], -w[0] + 1e6) if minimize else (-w[-1] - 1e6, -w[-1])
+    for _ in range(200):
+        lam = 0.5 * (lo + hi)
+        x = np.linalg.solve(H + lam * np.eye(len(g)), g)
+        if (float(x @ x) > alpha) == minimize:
+            lo = lam
+        else:
+            hi = lam
+    r = A @ x - b
+    return float(r @ r)
+
+
+def check_example(name, out, lps):
+    """The values tests/test_examples.py and the JAX package's book tests
+    assert, on the port's output (AssertionError where one fails); the
+    CPU comparison holds the rest (examples_compare)."""
+    import importlib
+    from scipy.optimize import linprog
+    if name.startswith("book "):
+        short = name[5:]
+        from kvxopt_tpu_torch.examples.book import PROBLEMS
+        mod = importlib.import_module("kvxopt_tpu_torch.examples.book." + next(
+            m for m, ns in PROBLEMS.items() if short in ns))
+        data = getattr(mod, f"{short}_data")()
+    sols = _result_dicts(out) + list(lps)
+    if name not in ("portfolio", "book covsel", "book consumerpref") and \
+            name not in HOST_ONLY:
+        need(sols and all(s["status"] == "optimal" for s in sols),
+             f"statuses {[s['status'] for s in sols]}")
+    if name == "lp":
+        _near(_xs(out), [1.0, 1.0], 1e-6, "x")
+        _near(out["primal objective"], -9.0, 1e-6, "objective")
+    elif name == "socp":
+        _near(_xs(out), [-5.0148, -5.7667, -8.5217], 1e-3, "x")
+    elif name == "sdp":
+        _near(_xs(out), [-0.3677, 1.8983, -0.8874], 1e-3, "x")
+        need(all(torch.linalg.eigvalsh(Z).min() > -1e-7 for Z in out["zs"]),
+             "zs not PSD")
+    elif name == "conelp":
+        _near(_xs(out), [-1.2209, 0.0966, 3.5775], 1e-3, "x")
+        need(out["primal infeasibility"] < 1e-6 and
+             out["dual infeasibility"] < 1e-6, "infeasibilities")
+    elif name == "coneqp":
+        _near(_xs(out), [0.72558319, 0.61806264, 0.30253528], 1e-5, "x")
+    elif name == "gp":
+        need(np.allclose(np.exp(_xs(out)), [2.8873, 5.7746, 11.5431],
+                         rtol=1e-3), "box")
+    elif name == "acent2":
+        _near(_xs(out), [0.4110, 0.5588, -0.7201], 1e-3, "x")
+    elif name == "l1regls":
+        x, _, A, y = out
+        g = 2.0 * A.T @ (A @ x - y)
+        on = np.abs(x) > 1e-6
+        need((np.abs(g) <= 1.0 + 1e-5).all(), "|gradient| > 1")
+        _near(g[on], -np.sign(x[on]), 1e-4, "gradient on the support")
+    elif name == "portfolio":
+        need((out["batch_status"] == 1).all(), "batch statuses")
+        need(out["returns"][0] >= out["returns"][-1] - 1e-6, "returns")
+    elif name == "normappr":
+        (x1, p1), (x2, p2), (x3, p3), A, b = out
+        Am, bv = np.asarray(A), np.asarray(b).reshape(-1)
+        m, n = Am.shape
+        c = np.r_[np.zeros(n), 1.0]
+        G = np.block([[Am, -np.ones((m, 1))], [-Am, -np.ones((m, 1))]])
+        r = linprog(c, A_ub=G, b_ub=np.r_[-bv, bv], bounds=(None, None),
+                    method="highs")
+        r1 = Am @ np.asarray(x1.value).ravel() + bv
+        need(abs(np.abs(r1).max() - r.fun) < 1e-6, "inf-norm optimum")
+        r3 = Am @ np.asarray(x3.value).ravel() + bv
+        direct = np.maximum.reduce([np.zeros_like(r3), np.abs(r3) - 0.75,
+                                    2 * np.abs(r3) - 2.25]).sum()
+        need(abs(direct - np.asarray(p3.objective.value()).ravel()[0])
+             < 1e-6, "dead-zone objective")
+    elif name in ("roblp", "l1svc"):
+        x, x2, _, _ = out
+        _near(np.asarray(x.value), np.asarray(x2.value), 1e-6,
+              "the two formulations differ")
+    elif name == "lp_modeling":
+        lp1, _, (x, y, c1, c2, _, _), (x2, _) = out
+        _near(lp1.objective.value()[0], -9.0, 1e-6, "objective")
+        _near([x.value[0], y.value[0]], [1.0, 1.0], 1e-6, "x, y")
+        _near(np.asarray(x2.value).ravel(), [1.0, 1.0], 1e-6, "x2")
+        _near([c1.multiplier.value[0], c2.multiplier.value[0]], [1.0, 2.0],
+              1e-5, "multipliers")
+    elif name == "dsdp_dual_scaling":
+        (status, x, _, _, _), ref = out
+        need(status == "DSDP_PDFEASIBLE", f"dual scaling {status}")
+        need(abs(float(np.asarray(x).ravel() @ [1.0, -1.0, 1.0]) -
+                 ref["primal objective"]) < 1e-4, "objective gap")
+    elif name == "floorplan":
+        _, W, H, _, _, w, hh = out
+        need(np.allclose(w * hh, 100.0, rtol=1e-5), "areas")
+        need(abs(W + H - 47.94) < 0.2, "W + H")
+    elif name == "book huber":
+        from scipy.optimize import minimize
+        A, v = data
+
+        def loss(x):
+            a = np.abs(A @ x - v)
+            return np.sum(np.where(a <= 1.0, a * a, 2 * a - 1.0))
+        ref = minimize(loss, np.zeros(2), method="Nelder-Mead",
+                       options={"xatol": 1e-10, "fatol": 1e-12,
+                                "maxiter": 5000})
+        _near(_xs(out)[:2], ref.x, 1e-4, "x")
+    elif name == "book basispursuit":
+        A, y = data
+        x = _xs(out)[:A.shape[1]]
+        g = 2.0 * A.T @ (A @ x - y)
+        nz = np.abs(x) > 1e-6
+        need(np.all(np.abs(g) <= 1.0 + 1e-5), "|gradient| > 1")
+        _near(g[nz], -np.sign(x[nz]), 1e-5, "gradient on the support")
+    elif name == "book regsel":
+        A, b = data
+        res = [np.linalg.norm(A @ _xs(s)[:A.shape[1]] - b) for s in out]
+        need(all(res[i] >= res[i + 1] - 1e-8 for i in range(len(res) - 1)),
+             "residuals not decreasing")
+        xln = np.linalg.lstsq(A, b, rcond=None)[0]
+        _near(res[-1], np.linalg.norm(A @ xln - b), 1e-4, "LS residual")
+    elif name == "book maxent":
+        G, h, _, _ = data
+        p = _xs(out)
+        need(np.all(p > 0) and abs(p.sum() - 1.0) < 1e-6 and
+             np.all(G @ p <= h + 1e-6), "distribution")
+    elif name == "book expdesign":
+        x = _xs(out)
+        w = np.sum(data * (np.linalg.inv((data * x) @ data.T) @ data),
+                   axis=0)
+        need(np.max(w) <= 2.0 + 1e-4, "duality")
+        _near(w[x > 1e-5], 2.0, 1e-3, "support")
+    elif name == "book covsel":
+        rows, cols = data["rows"], data["cols"]
+        need(out["decrement"] < 1e-10, "Newton decrement")
+        _near(np.linalg.inv(out["K"])[rows, cols], data["Y"][rows, cols],
+              1e-6, "stationarity")
+        need(np.linalg.eigvalsh(out["K"]).min() > 0, "K not PD")
+    elif name == "book linsep":
+        prob, a, b = out
+        X, Y = data
+        av, bv = np.asarray(a.value).ravel(), float(np.asarray(b.value)[0])
+        need(float(prob.objective.value()[0]) < 1e-6, "objective")
+        need(np.all(X.T @ av - bv >= 1 - 1e-6) and
+             np.all(Y.T @ av - bv <= -1 + 1e-6), "separation")
+    elif name == "book chernoff":
+        for sol, (A, b, _) in zip(out, data):
+            need(np.all(A @ _xs(sol) <= b + 1e-6), "feasibility")
+    elif name == "book placement":
+        A, B = data
+        for d, sol in enumerate(out):
+            _near(_xs(sol), np.linalg.lstsq(A, -B[:, d], rcond=None)[0],
+                  1e-5, "x")
+    elif name == "book centers":
+        G, h, _ = data
+        x = _xs(out)
+        L = np.array([[x[0], 0.0], [x[1], x[2]]])
+        need(np.all(np.linalg.norm(G @ L, axis=1) + G @ x[3:5] <= h + 1e-6),
+             "containment")
+        A_ub = np.hstack([G, np.linalg.norm(G, axis=1)[:, None]])
+        res = linprog([0, 0, -1.0], A_ub=A_ub, b_ub=h,
+                      bounds=[(None, None)] * 2 + [(0, None)],
+                      method="highs")
+        need(abs(np.linalg.det(L)) >= res.x[2] ** 2 * (1 - 1e-6),
+             "smaller than the Chebyshev ball")
+    elif name == "book l2ac":
+        _near(_xs(out[1]), _xs(out[0]), 1e-5, "custom against dense")
+    elif name == "book logreg":
+        A, c = data
+        x = _xs(out)
+        p = 1 / (1 + np.exp(-(A @ x)))
+        need(np.linalg.norm(c + A.T @ p) < 1e-5, "gradient")
+    elif name == "book penalties":
+        A, b = data
+        n = A.shape[1]
+        r1 = A @ np.asarray(out["l1"][1].value).ravel() + b
+        r2 = A @ np.asarray(out["deadzone"][1].value).ravel() + b
+        need(np.sum(np.abs(r1) < 1e-6) >= n - 1, "l1 residuals")
+        need(np.sum(np.abs(r2) <= 0.5 + 1e-6) >= n - 1, "dead band")
+        need(np.all(np.abs(A @ _xs(out["barrier"]) + out["b_barrier"])
+                    < 1.0), "barrier domain")
+    elif name == "book cvxfit":
+        _, _, G, _ = mod.cvxfit_problem(data)
+        need(np.all(G @ _xs(out) <= 1e-7), "convexity")
+    elif name == "book smoothrec":
+        corr, delta = data
+        D = np.diff(np.eye(len(corr)), axis=0)
+        _near(out, np.linalg.solve(np.eye(len(corr)) + delta * D.T @ D,
+                                   corr), 1e-9, "x")
+    elif name == "book robls":
+        A, Aps, b = data
+        x_rob = _xs(out)[:A.shape[1]]
+        x_ls = np.linalg.lstsq(A, b, rcond=None)[0]
+        r_rob = _robust_residual(A, Aps, b, x_rob)
+        need(r_rob <= _robust_residual(A, Aps, b, x_ls) + 1e-8,
+             "worst case above LS's")
+        need(r_rob ** 2 <= out["primal objective"] + 1e-6, "bound")
+    elif name == "book ellipsoids":
+        x = _xs(out)
+        L = np.array([[x[0], 0.0], [x[1], x[2]]])
+        nrm = np.linalg.norm(data @ L.T + x[3:5], axis=1)
+        need(np.all(nrm <= 1.0 + 1e-6) and np.sum(nrm > 1.0 - 1e-4) >= 2,
+             "cover and support")
+        R = np.max(np.linalg.norm(data - data.mean(axis=0), axis=1))
+        need(np.pi / np.linalg.det(L) <= np.pi * R * R * 1.0001, "volume")
+    elif name == "book polapprox":
+        V, y = data
+        a = _xs(out)[:V.shape[1]]
+        _near(np.max(np.abs(V @ a - y)), out["primal objective"], 1e-6,
+              "Chebyshev norm")
+    elif name == "book consumerpref":
+        labels, vals = out
+        need(len(labels) == data.shape[1] and np.isfinite(vals).any(),
+             "labels")
+    elif name == "book inputdesign":
+        for u, (delta, eta) in zip(out, mod.INPUTDESIGN_WEIGHTS):
+            AA, bb = mod.inputdesign_system(data, delta, eta)
+            _near(u, np.linalg.lstsq(AA, bb, rcond=None)[0], 1e-8, "u")
+    elif name == "book probbounds":
+        rows, _, scale = out
+        need(all(0.0 <= r["bound"] <= 1.0 + 1e-8 for r in rows), "bounds")
+        need(scale > 0, "degenerate ellipse")
+    elif name == "book filterdemo":
+        _, hv, att = out
+        G1, _, d1 = data
+        y1 = G1 @ hv
+        need((y1 <= d1 + 1e-7).all() and (y1 >= 1.0 / d1 - 1e-7).all(),
+             "pass band")
+        need(att < 1.0 / d1, "attenuation")
+    elif name == "book rls":
+        A, b = data
+        for rows, lower in ((out[0], True), (out[1], False)):
+            for alpha, value, _ in rows:
+                exact = _sphere_ls(A, b, alpha, lower)
+                need(abs(value - exact) <= 1e-6 + 1e-5 * abs(exact),
+                     f"alpha {alpha}")
+
+
+def _run_example(fn):
+    """fn() with solvers.lp spied on -> (output, the lp results)."""
+    from kvxopt_tpu_torch import solvers
+    with spy(solvers, "lp") as seen:
+        out = fn()
+    return out, list(seen)
+
+
+def _cpu_ms(fn, reps=3):
+    """Median ms of `reps` calls of fn on the CPU (warm_times without the
+    card's syncs: a CPU worker never touches CUDA)."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def l1regls_wide_data(m=L1REGLS_WIDE[0], n=L1REGLS_WIDE[1], seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((m, n)), rng.standard_normal(m)
+
+
+def mcsdp_data(n):
+    """examples/mcsdp.py's main(n) data."""
+    w = np.random.default_rng(3).standard_normal((n, n))
+    return 0.5 * (w + w.T)
+
+
+def wide_calls():
+    """(b)'s calls at widths where the card is the route."""
+    from kvxopt_tpu_torch.examples import l1regls, mcsdp
+    A, y = l1regls_wide_data()
+    w = mcsdp_data(MCSDP_WIDE)
+    return {f"l1regls {L1REGLS_WIDE}": lambda: l1regls.l1regls(A, y)[1],
+            f"mcsdp n={MCSDP_WIDE}": lambda: mcsdp.mcsdp(w)}
+
+
+def examples_cpu():
+    """In a worker process: phase 19's calls on the CPU
+    (config.using_device('cpu')), one untimed call then 3 timed -> name ->
+    (rows, median ms), (a)'s calls and (b)'s wide ones."""
+    from kvxopt_tpu_torch import config
+    out = {}
+    with config.using_device("cpu"):
+        calls = example_calls()
+        calls.update(wide_calls())
+        for name, fn in calls.items():
+            res, lps = _run_example(fn)
+            ms = _cpu_ms(lambda: _run_example(fn))
+            out[name] = (example_rows(name, res, lps), ms)
+    return out
+
+
+def _record_routes():
+    """Wrap config.dispatch_device(_batched) -> (the list of (kind, order,
+    route) decisions they make, a function that restores them)."""
+    from kvxopt_tpu_torch import config
+    seen, saved = [], (config.dispatch_device, config.dispatch_device_batched)
+
+    def wrap(fn, kind):
+        def decide(order):
+            dev = fn(order)
+            where = (dev if dev is not None else config.default_device).type
+            seen.append((kind, int(order), where))
+            return dev
+        return decide
+    config.dispatch_device = wrap(saved[0], "single")
+    config.dispatch_device_batched = wrap(saved[1], "batched")
+
+    def restore():
+        config.dispatch_device, config.dispatch_device_batched = saved
+    return seen, restore
+
+
+# calls whose work goes through no front end's route
+NOT_ROUTED = {"book covsel": "cholmod's tile path on config.default_device",
+              "book smoothrec": "lapack on the host",
+              "book inputdesign": "lapack on the host"}
+
+
+def _route_text(name, seen):
+    """Each dispatch decision of a call, as (kind, KKT order, the device
+    it ran on), in order."""
+    if not seen:
+        return NOT_ROUTED.get(name, "operator-form P or G: no KKT order, "
+                              "never routed")
+    return "; ".join(f"{kind} order {order} -> {where}"
+                     for kind, order, where in dict.fromkeys(seen))
+
+
+def examples(dev):
+    """Phase 19, "examples": (a) every call of example_calls on the card,
+    both thresholds 0, numpy data, no device named: the values its tests
+    assert (check_example), its result tensors on the card (where it
+    gives only numpy, device time seen by the profiler; lapack's host
+    facades: no device work), the warm median of 3; K1-K4's counts over (a),
+    printed; (b) with config.py's thresholds, the route each call takes,
+    then l1regls at L1REGLS_WIDE and mcsdp at MCSDP_WIDE on the card and
+    mcsdp at MCSDP_SMALL on the CPU; (c) weak_scaling_sharded at world 1
+    over NCCL.  Thresholds 0 again at the end.  Returns name -> (rows,
+    card ms) for examples_compare."""
+    from kvxopt_tpu_torch import config
+    from kvxopt_tpu_torch.examples import mcsdp, weak_scaling_sharded as ws
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    set_thresholds(0, 0)
+    calls = example_calls()
+    gpu = {}
+    torch.cuda.synchronize()
+    cl.reset_launches()
+    for name, fn in calls.items():
+        res = {}
+
+        def run():
+            res["out"], res["lps"] = _run_example(fn)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        out, lps = res["out"], res["lps"]
+        try:
+            check_example(name, out, lps)
+        except AssertionError as e:
+            fail(f"examples (a) {name}: {e}")
+        devs = _result_devices(out, lps)
+        if name in HOST_ONLY:
+            seen = "host facade (lapack), no device work"
+            check(not devs, f"examples (a) {name}: a result on a device")
+        elif devs:
+            check(devs == {"cuda"}, f"examples (a) {name}: results on "
+                  f"{sorted(devs)}, not on the card")
+            seen = "every result tensor on the card"
+        else:
+            # portfolio's and covsel's outputs are numpy: the profiler's
+            # device time shows their work on the card
+            _, on_dev, _, _, why = trace(run)
+            check(len(on_dev) > 0, f"examples (a) {name}: the profiler saw "
+                  "no device time")
+            busy = sum(e.self_device_time_total for e in on_dev) / 1e3
+            seen = (f"device {busy:.3f} ms in a profiled call" if why is None
+                    else f"device events seen ({why})")
+        ms = 1e3 * float(np.median(warm_times(run)))
+        rows = example_rows(name, res["out"], res["lps"])
+        print(f"examples (a) {name}: statuses "
+              f"{[r[0] for r in rows]}, iterations {[r[1] for r in rows]}, "
+              f"card warm median {ms:.2f} ms (first call {1e3 * first:.2f} "
+              f"ms), {seen}", flush=True)
+        gpu[name] = (rows, ms)
+    launches = dict(cl.LAUNCHES)
+    print(f"examples (a) K1-K4 launches over every call: {launches} (the "
+          "examples solve in f64; K1-K4 fire only in chol2_mixed(_nofb) "
+          "and ops.batched_cholesky)", flush=True)
+    stamp("phase 19(a)")
+
+    set_thresholds(config.HOST_DISPATCH, config.HOST_DISPATCH_BATCHED)
+    for name, fn in calls.items():
+        seen, restore = _record_routes()
+        try:
+            out, lps = _run_example(fn)
+        finally:
+            restore()
+        devs = sorted(_result_devices(out, lps)) or ["host"]
+        print(f"examples (b) route {name} (thresholds "
+              f"{config.host_dispatch_threshold}/"
+              f"{config.host_dispatch_threshold_batched}): "
+              f"{_route_text(name, seen)}; results on {devs}", flush=True)
+    for name, fn in wide_calls().items():
+        seen, restore = _record_routes()
+        try:
+            sol = fn()
+        finally:
+            restore()
+        on_card(f"examples (b) {name}", sol["x"])
+        wall, on_dev, _, _, why = trace(fn)
+        check(len(on_dev) > 0, f"examples (b) {name}: no device time")
+        ms = 1e3 * float(np.median(warm_times(fn)))
+        print(f"examples (b) {name}: {_route_text(name, seen)}; status "
+              f"{sol['status']}, iterations {sol['iterations']}, card warm "
+              f"median {ms:.2f} ms", flush=True)
+        check(sol["status"] == "optimal", f"examples (b) {name}: status")
+        gpu[name] = ([_row(sol["status"], sol["iterations"], sol["x"])], ms)
+    seen, restore = _record_routes()
+    try:
+        sol = mcsdp.mcsdp(mcsdp_data(MCSDP_SMALL))
+    finally:
+        restore()
+    print(f"examples (b) mcsdp n={MCSDP_SMALL}: {_route_text('', seen)}; "
+          f"status "
+          f"{sol['status']}, x on {sol['x'].device.type}", flush=True)
+    check(sol["status"] == "optimal" and sol["x"].device.type == "cpu",
+          f"examples (b) mcsdp n={MCSDP_SMALL}: not solved on the CPU")
+    set_thresholds(0, 0)
+    stamp("phase 19(b)")
+
+    t, ux = ws.run(1, WS_ROWS, WS_N, reps=5, device="cuda:0",
+                   backend="nccl")
+    G, s, z, bx, bz = ws.problem(WS_ROWS, WS_N)
+    d2 = z / s
+    uref = np.linalg.solve(np.eye(WS_N) + G.T @ (d2[:, None] * G),
+                           bx + G.T @ (d2 * bz))
+    du = np.linalg.norm(ux - uref) / (1 + np.linalg.norm(uref))
+    print("examples (c) weak_scaling_sharded, world 1 over NCCL on cuda:0:\n"
+          "ndev  rows    factor+solve ms   weak-scaling eff\n"
+          f"{1:4d}  {WS_ROWS:6d}  {t * 1e3:12.2f}      {1.0:.2f}\n"
+          f"examples (c) |ux-u_dense|/(1+|u_dense|) {du:.3e} (tol 1e-8)",
+          flush=True)
+    check(du <= 1e-8, "examples (c): the sharded step differs from the "
+          "dense solve")
+    stamp("phase 19(c)")
+    return gpu
+
+
+def examples_compare(pending, gpu):
+    """Phase 19 against the CPU: per call every solve's status, iterations
+    within 1, x within 1e-6 (1 + |x|); each call's card and CPU warm
+    medians."""
+    try:
+        cpu = pending.get()
+    except Exception as e:  # noqa: BLE001  (the worker's error, reported)
+        fail(f"examples: the CPU side raised {e!r}")
+    print("examples table: name | card ms | cpu ms (warm medians of 3)")
+    for name, (rows, ms) in gpu.items():
+        crows, cms = cpu[name]
+        check(len(rows) == len(crows), f"examples {name}: {len(rows)} "
+              f"solves on the card, {len(crows)} on the CPU")
+        dx = 0.0
+        for (st, it, x), (cst, cit, cx) in zip(rows, crows):
+            check(st == cst and abs(it - cit) <= 1, f"examples {name}: "
+                  f"status/iterations {st}/{it} on the card, {cst}/{cit} on "
+                  "the CPU")
+            if x is not None or cx is not None:
+                dx = max(dx, np.linalg.norm(x - cx) /
+                         (1 + np.linalg.norm(cx)))
+        print(f"examples {name} | {ms:.2f} | {cms:.2f} | max "
+              f"|x_card-x_cpu|/(1+|x_cpu|) {dx:.3e} (tol 1e-6)", flush=True)
+        check(dx <= 1e-6, f"examples {name}: x differs from the CPU")
+
+
 # phase 18, "dispatch": the executor dispatch's crossovers and routes
 DISPATCH_N = (4, 16, 64, 128, 256, 512)   # (a) single-instance n, m = 2n
 DISPATCH_NB = (16, 64, 128, 256, 512)     # (b) batched n, B = 16
@@ -3487,6 +4105,8 @@ def cpu_solve(name, threads):
         return sparse_cpu()
     if name == "modeling":
         return modeling_cpu()
+    if name == "examples":
+        return examples_cpu()
     from kvxopt_tpu_torch import ConeDims, solvers
     from kvxopt_tpu_torch.convert import (lp_state_to_numpy,
                                           problem_to_torch, state_to_numpy)
@@ -3557,7 +4177,7 @@ def main():
     # and 12, so that the other two start once those are done
     pending = start_cpu_solves(("slice l+q+s", "lp batch", "conelp l+q+s",
                                 "nonlinear", "sparse", "modeling", "slice",
-                                "slice l+q+eq"))
+                                "slice l+q+eq", "examples"))
     rows = phase1(dev)
     k1_times(dev)
     stamp("phase 1")
@@ -3596,6 +4216,8 @@ def main():
     stamp("phase 16")
     mesh_launches = multi_device(dev, gpu)
     stamp("phase 17")
+    gpu_ex = examples(dev)
+    stamp("phase 19")
     for name, g in (("slice", gpu), ("slice l+q+eq", gpu_eq),
                     ("slice l+q+s", gpu_s), ("lp batch", gpu_lp),
                     ("conelp l+q+s", gpu_lqs)):
@@ -3603,9 +4225,10 @@ def main():
     nonlinear_compare(pending["nonlinear"], gpu_nl)
     sparse_compare(pending["sparse"], gpu_sp)
     modeling_compare(pending["modeling"], gpu_md)
+    examples_compare(pending["examples"], gpu_ex)
     POOL.close()
     POOL.join()
-    stamp("phases 4, 6, 10 and the CPU sides of 11-15")
+    stamp("phases 4, 6, 10 and the CPU sides of 11-15 and 19")
     dispatch(dev)
     stamp("phase 18")
 

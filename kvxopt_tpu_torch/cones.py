@@ -84,6 +84,15 @@ class ConeDims:
             ofs += m * m
         return tuple(out)
 
+    def qblock(self, u, k):
+        """The k-th q block of the cone vector u."""
+        return u[self.qofs[k]:self.qofs[k] + self.q[k]]
+
+    def sblock(self, u, k):
+        """The k-th s block of the cone vector u as its (m, m) matrix."""
+        m = self.s[k]
+        return u[self.sofs[k]:self.sofs[k] + m * m].reshape(m, m)
+
     def with_extra_l(self, extra: int) -> "ConeDims":
         """Dims with `extra` leading orthant entries."""
         return ConeDims(l=self.l + extra, q=self.q, s=self.s)

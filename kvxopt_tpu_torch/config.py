@@ -51,6 +51,19 @@ def _default_device():
     return _process_device if dev is None else dev
 
 
+def set_default_dtype(dtype):
+    """Set the dtype of the solver state (a torch dtype, a numpy dtype or
+    its name)."""
+    global default_dtype
+    default_dtype = _torch_dtype(dtype)
+
+
+def set_compute_dtype(dtype):
+    """Set the dtype the batched Cholesky kernels factor in."""
+    global compute_dtype
+    compute_dtype = _torch_dtype(dtype)
+
+
 def set_default_device(device):
     """Set the process-wide device the front ends place array-like inputs
     on; returns the one it replaces."""
