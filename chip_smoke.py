@@ -2071,10 +2071,7 @@ def sparse(dev):
     try:
         S, shift = stiffness_standin(0)
         gpu = {"d": cholmod_card("cholmod stand-in", S, dev)}
-        secs = native.BUILD_INFO["seconds"]
-        print(f"sparse: native host library {native.BUILD_INFO['path']}, " +
-              ("built by a worker process of this run" if secs is None
-               else f"built in {secs:.2f} s"), flush=True)
+        print(f"sparse: native host library {native._build()}", flush=True)
         Z, _ = stiffness_standin(1, N_SPZ, NNZ_SPZ, complex_=True)
         gpu["z"] = cholmod_card("cholmod hermitian", Z, dev)
     finally:

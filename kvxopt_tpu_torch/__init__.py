@@ -17,19 +17,24 @@ info and _version, and parallel's multi-device modules over
 torch.distributed (make_mesh, spawn, sharded, arrow, dist_chol).
 """
 
-import numpy as _np
+import time as _time
 
-from . import config  # noqa: F401  (turns TF32 off first)
-from . import cones, kkt, ops, parallel, solvers  # noqa: F401
-from .cones import ConeDims  # noqa: F401
-from .base import (  # noqa: F401
+_t0 = _time.perf_counter_ns()
+
+import numpy as _np  # noqa: E402
+
+from . import trace  # noqa: E402
+from . import config  # noqa: E402,F401  (turns TF32 off first)
+from . import cones, kkt, ops, parallel, solvers  # noqa: E402,F401
+from .cones import ConeDims  # noqa: E402,F401
+from .base import (  # noqa: E402,F401
     matrix, spmatrix, sparse, spdiag, fromfile,
     exp, log, sqrt, sin, cos, tan, asin, acos, atan, sinh, cosh, tanh,
     conj, emul, ediv, emin, emax, norm,
     gemv, gemm, syrk, symv, axpy)
-from .gsl import normal, uniform, setseed, getseed  # noqa: F401
-from . import printing  # noqa: F401
-from ._version import __version__  # noqa: F401
+from .gsl import normal, uniform, setseed, getseed  # noqa: E402,F401
+from . import printing  # noqa: E402,F401
+from ._version import __version__  # noqa: E402,F401
 
 _pymin, _pymax = min, max
 
@@ -82,3 +87,5 @@ __all__ = [
     "setseed", "getseed", "exp", "log", "sqrt", "sin", "cos", "tan",
     "mul", "div", "min", "max", "norm", "ConeDims", "printing", "solvers",
 ]
+
+trace.IMPORT_NS = (_t0, _time.perf_counter_ns())

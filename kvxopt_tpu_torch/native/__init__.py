@@ -15,7 +15,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
@@ -23,7 +22,6 @@ import numpy as np
 _SRC = Path(__file__).resolve().parent / "host.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
-BUILD_INFO = {"seconds": None, "path": None, "compiler": None}
 
 c_i64 = ctypes.c_longlong
 c_i64_p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
@@ -48,7 +46,6 @@ def _build():
     if not out.exists():
         gxx = _gxx()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             so = Path(tmp) / "lib.so"
             proc = subprocess.run([gxx, *FLAGS, "-o", str(so), str(_SRC)],
@@ -57,9 +54,6 @@ def _build():
                 raise RuntimeError("g++ failed on host.cpp:\n"
                                    + proc.stderr[-8000:])
             os.replace(so, out)
-        BUILD_INFO["seconds"] = time.perf_counter() - t0
-        BUILD_INFO["compiler"] = gxx
-    BUILD_INFO["path"] = str(out)
     return out
 
 

@@ -12,7 +12,8 @@ Without a mesh, batched_qp_solver and batched_lp_solver go through
 _dispatched_batch: array-like inputs whose per-instance KKT system has
 an order n + m + p below config.host_dispatch_threshold_batched are
 placed on the CPU and solved there; tensors keep their device, and the
-mixed strategies are never routed.
+mixed strategies are never routed.  Each QP driver's call is one root
+span, `batched_qp` (trace.py).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import config, kkt
+from .. import config, kkt, trace
 from ..cones import ConeDims
 from ..solvers._conelp import _conelp_core
 from ..solvers.coneprog import (OPTIMAL, Options, _coneqp_core, _matrix_ops,
@@ -35,11 +36,16 @@ def _options(options):
 def _tensors(*arrays):
     """The inputs as tensors: tensors as they are, array-likes (numpy)
     on the first tensor's device, else on config.default_device, which
-    raises where that is the card and there is none."""
+    raises where that is the card and there is none.  A copy to the card
+    counts in the call's h2d_bytes."""
     dev = _solve_device(*arrays)
-    return tuple(a if a is None or isinstance(a, torch.Tensor)
-                 else torch.as_tensor(np.asarray(a), device=dev)
-                 for a in arrays)
+    out = []
+    for a in arrays:
+        if a is not None and not isinstance(a, torch.Tensor):
+            a = torch.as_tensor(np.asarray(a), device=dev)
+            trace.count_h2d(a)
+        out.append(a)
+    return tuple(out)
 
 
 def _cast(lead, mats, A, b):
@@ -93,17 +99,19 @@ def make_qp_solver(dims, kktsolver=None, options=None, with_eq=False):
     o = o.resolve_refinement(dims, kktsolver)
 
     def solve(P, q, G, h, A=None, b=None):
-        P, q, G, h, A, b = _tensors(P, q, G, h, A, b)
-        if q.ndim == 1:
-            ab = () if A is None else (A[None], b[None])
-            out = solve(P[None], q[None], G[None], h[None], *ab)
-            return (*(a[0] for a in out[:6]),
-                    type(out[6])(*(a[0] for a in out[6])))
-        (P, G, h), A, b = _cast(q, (P, G, h), A, b)
-        factor = kkt.make_kkt_solver(kktsolver, dims, G, A, P,
-                                     reg=o.kktreg, ozaki=o.ozaki,
-                                     facref=o.facref)
-        return _coneqp_core(q, h, b, dims, o, factor, *_matrix_ops(G, A, P))
+        with trace.root("batched_qp"):
+            P, q, G, h, A, b = _tensors(P, q, G, h, A, b)
+            if q.ndim == 1:
+                ab = () if A is None else (A[None], b[None])
+                out = solve(P[None], q[None], G[None], h[None], *ab)
+                return (*(a[0] for a in out[:6]),
+                        type(out[6])(*(a[0] for a in out[6])))
+            (P, G, h), A, b = _cast(q, (P, G, h), A, b)
+            factor = kkt.make_kkt_solver(kktsolver, dims, G, A, P,
+                                         reg=o.kktreg, ozaki=o.ozaki,
+                                         facref=o.facref)
+            return _coneqp_core(q, h, b, dims, o, factor,
+                                *_matrix_ops(G, A, P))
 
     return solve
 
@@ -183,9 +191,13 @@ def batched_qp_solver(dims, kktsolver=None, options=None, mesh=None,
     with `mesh`, dealt over its 'batch' axis (_on_mesh), else routed by
     the KKT order of q, G and A (_dispatched_batch)."""
     solve = make_qp_solver(dims, kktsolver, _vmap_facref(options), with_eq)
-    if mesh is None:
-        return _dispatched_batch(solve, 1, kktsolver)
-    return _on_mesh(solve, mesh)
+    run = (_dispatched_batch(solve, 1, kktsolver) if mesh is None
+           else _on_mesh(solve, mesh))
+
+    def batched(*args, **kwargs):
+        with trace.root("batched_qp"):
+            return run(*args, **kwargs)
+    return batched
 
 
 def batched_lp_solver(dims, kktsolver=None, options=None, mesh=None):
@@ -225,25 +237,26 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
     slow = batched_qp_solver(dims, "chol2", options, None, with_eq)
 
     def solve(P, q, G, h, *ab):
-        out = fast(P, q, G, h, *ab)
-        bad = torch.nonzero(out[5] != OPTIMAL).flatten()
-        solve.stats["pass1_status"] = out[5].tolist()
-        solve.stats["pass2_lanes"] = int(bad.numel())
-        if bad.numel() == 0:
-            return out
+        with trace.root("batched_qp"):
+            out = fast(P, q, G, h, *ab)
+            bad = torch.nonzero(out[5] != OPTIMAL).flatten()
+            solve.stats["pass1_status"] = out[5].tolist()
+            solve.stats["pass2_lanes"] = int(bad.numel())
+            if bad.numel() == 0:
+                return out
 
-        def lanes(a):
-            if isinstance(a, torch.Tensor):
-                return a[bad.to(a.device)]
-            return np.asarray(a)[bad.cpu().numpy()]
-        sout = slow(*map(lanes, (P, q, G, h, *ab)))
+            def lanes(a):
+                if isinstance(a, torch.Tensor):
+                    return a[bad.to(a.device)]
+                return np.asarray(a)[bad.cpu().numpy()]
+            sout = slow(*map(lanes, (P, q, G, h, *ab)))
 
-        def merge(a, s):
-            a = a.clone()
-            a[bad] = s.to(a.device)
-            return a
-        return (*map(merge, out[:6], sout[:6]),
-                type(out[6])(*map(merge, out[6], sout[6])))
+            def merge(a, s):
+                a = a.clone()
+                a[bad] = s.to(a.device)
+                return a
+            return (*map(merge, out[:6], sout[:6]),
+                    type(out[6])(*map(merge, out[6], sout[6])))
 
     solve.stats = {"pass1_status": [], "pass2_lanes": 0}
     return solve
@@ -272,14 +285,15 @@ def batched_qp_solver_seq(dims, kktsolver="chol2_mixed", options=None,
     solve_slice = make_qp_solver(dims, kktsolver, options, with_eq)
 
     def solve(P, q, G, h, *ab):
-        args = _tensors(P, q, G, h, *ab)
-        B = args[1].shape[0]
-        if B % group:
-            raise ValueError(f"batch {B} not divisible by group {group}")
-        outs = [solve_slice(*(a[i:i + group] for a in args))
-                for i in range(0, B, group)]
-        return (*(torch.cat(f) for f in list(zip(*outs))[:6]),
-                type(outs[0][6])(*(torch.cat(f) for f in
-                                   zip(*(o[6] for o in outs)))))
+        with trace.root("batched_qp"):
+            args = _tensors(P, q, G, h, *ab)
+            B = args[1].shape[0]
+            if B % group:
+                raise ValueError(f"batch {B} not divisible by group {group}")
+            outs = [solve_slice(*(a[i:i + group] for a in args))
+                    for i in range(0, B, group)]
+            return (*(torch.cat(f) for f in list(zip(*outs))[:6]),
+                    type(outs[0][6])(*(torch.cat(f) for f in
+                                       zip(*(o[6] for o in outs)))))
 
     return solve

@@ -30,11 +30,12 @@ import numpy as np
 import torch
 
 from .. import cones, config
+from ..trace import _profile_ctx
 from ..cones import ConeDims
 from .coneprog import (
     RUNNING, OPTIMAL, UNKNOWN, PRIMAL_INFEASIBLE, DUAL_INFEASIBLE, SINGULAR,
     _STATUS_STR, STEP, EXPON, LANES, Options, _asarray, _constraints,
-    _custom_ops, _dispatch_ctx, _front_end_ops, _numel, _profile_ctx,
+    _custom_ops, _dispatch_ctx, _front_end_ops, _numel,
     _relgap, _resolve_options, _solve_device, _spaces, _start,
     _tree_leaves, _kkt_order, _veclen, _where)
 
@@ -57,7 +58,7 @@ def conelp(c, G, h, dims=None, A=None, b=None, primalstart=None,
     device.  G and A may be operators with a custom kktsolver, as in
     coneqp; primalstart {'x', 's'} and dualstart {'y', 'z'} warm-start
     the iteration.  options['profile'] = <directory> writes the solve's
-    torch.profiler trace there (coneprog._profile_ctx).
+    torch.profiler trace there (trace._profile_ctx).
 
     Custom vector spaces, as in coneqp: any x* hook makes x and c
     elements of the user's space (G an operator, kktsolver the user's),

@@ -15,8 +15,10 @@ live here; coneqp, conelp, cpl and cp take them, and the batched cores
 reach a space only through _LaneSpace (dense lanes) or _UserSpace (a
 custom space, a batch of one).  options['profile'] = <directory> runs a
 coneqp or conelp solve under torch.profiler and writes its Chrome trace
-there (_profile_ctx).  Executor dispatch: before any array is placed,
-a front end sizes its solve from shape metadata alone (_veclen): the
+there (trace._profile_ctx); qp and coneqp open the root span of their
+call, and the core its spans (trace.py).  Executor dispatch: before any
+array is placed, a front end sizes its solve from shape metadata alone
+(_veclen): the
 order n + m + p of its KKT system (_kkt_order).  Below
 config.host_dispatch_threshold it runs the solve under
 config.using_device(config.host_device()) (_dispatch_ctx), so array-like
@@ -29,14 +31,12 @@ from __future__ import annotations
 
 import contextlib
 import math
-import os
-import tempfile
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import cones, config, kkt
+from .. import cones, config, kkt, trace
 from ..cones import ConeDims
 from ..kkt import _mv, _tmv
 
@@ -132,13 +132,17 @@ def _solve_device(*args):
 
 def _asarray(x, dtype, device, shape=None, name="argument"):
     """x as a tensor of `dtype` on `device`; (n, 1) becomes (n,) where a
-    vector is expected, and `shape` is checked."""
+    vector is expected, and `shape` is checked.  A copy from host memory
+    to the card counts in the call's h2d_bytes."""
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
         a = x.to(device=device, dtype=dtype)
+        if x.device.type == "cpu":
+            trace.count_h2d(a)
     else:
         a = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+        trace.count_h2d(a)
     if a.ndim == 2 and a.shape[1] == 1 and (shape is None or len(shape) == 1):
         a = a[:, 0]
     if shape is not None and tuple(a.shape) != tuple(shape):
@@ -188,34 +192,6 @@ def _dispatch_ctx(*sizes):
     if dev is None:
         return contextlib.nullcontext()
     return config.using_device(dev)
-
-
-def _profile_ctx(options, device):
-    """Opt-in torch.profiler capture of a whole solve: with
-    options['profile'] = <directory> (per call or in solvers.options),
-    the solve runs under torch.profiler, tracing the host's operators
-    and, where `device` is the card, its kernels, and on exit writes one
-    Chrome trace under that directory, kvxopt_<pid>_<unique>.trace.json,
-    so that calls do not overwrite each other.  Without the key no
-    profiler is created."""
-    pdir = _merged_options(options).get("profile")
-    if not pdir:
-        return contextlib.nullcontext()
-    return _profiled(str(pdir), torch.device(device))
-
-
-@contextlib.contextmanager
-def _profiled(pdir, device):
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    os.makedirs(pdir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield
-    fd, path = tempfile.mkstemp(prefix=f"kvxopt_{os.getpid()}_",
-                                suffix=".trace.json", dir=pdir)
-    os.close(fd)
-    prof.export_chrome_trace(path)
 
 
 def _numel(x):
@@ -621,21 +597,18 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
     B, dtype, dev = h.shape[0], h.dtype, h.device
     p = ysp.size(b)
     deg = dims.degree
-    e = cones.cone_e(dims, dtype, dev)
 
     def dot(u, v):
         return torch.sum(u * v, dim=-1)
 
-    resx0 = torch.clamp(xsp.norm(q), min=1.0)
-    resy0 = torch.clamp(ysp.norm(b), min=1.0)
-    resz0 = torch.clamp(cones.snrm2(dims, h), min=1.0)
-
     def newton(solve, lmbda, W, rx, ry, rz, d_target):
         """Solve the Newton system for a given complementarity target."""
-        tmp = cones.sinv(dims, lmbda, d_target)
-        bz = -rz - cones.scale(dims, W, tmp, trans=True)
+        with trace.span("cone"):
+            tmp = cones.sinv(dims, lmbda, d_target)
+            bz = -rz - cones.scale(dims, W, tmp, trans=True)
         bx, by = xsp.scal(-1.0, rx), ysp.scal(-1.0, ry)
-        dx, dy, dz = solve(bx, by, bz)
+        with trace.span("kkt.solve"):
+            dx, dy, dz = solve(bx, by, bz)
         for _ in range(o.refinement):
             # residuals of the full (unscaled) Newton system
             t = pmv(dx)
@@ -646,19 +619,24 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
             wtwdz = cones.scale(dims, W, cones.scale(dims, W, dz),
                                 trans=True)
             r3 = bz - (gmv(dx) - wtwdz)
-            ex, ey, ez = solve(r1, r2, r3)
+            with trace.span("kkt.solve"):
+                ex, ey, ez = solve(r1, r2, r3)
             dx = xsp.axpy(ex, dx)
             dy = ysp.axpy(ey, dy) if p else dy
             dz = dz + ez
-        ds = cones.scale(dims, W, tmp - cones.scale(dims, W, dz),
-                         trans=True)
+        with trace.span("cone"):
+            ds = cones.scale(dims, W, tmp - cones.scale(dims, W, dz),
+                             trans=True)
         return dx, dy, dz, ds
 
     def initial_point():
         if init is not None:
             return init
         W0 = cones.identity_scaling(dims, B, dtype, dev)
-        x0, y0, z0 = factor(W0)(xsp.scal(-1.0, q), b, h)
+        with trace.span("kkt.factor"):
+            solve0 = factor(W0)
+        with trace.span("kkt.solve"):
+            x0, y0, z0 = solve0(xsp.scal(-1.0, q), b, h)
         s0 = -z0
         ts, tz = cones.max_step2(dims, s0, z0)
         s0 = _where(ts >= -1e-8 * torch.clamp(torch.abs(ts), min=1.0),
@@ -685,9 +663,12 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
                                    _relgap(gap, pcost, dcost), pres, dres)
 
     def do_step(x, y, s, z, rx, ry, rz, m):
-        W, lmbda = cones.compute_scaling(dims, s, z)
-        solve = factor(W)
-        lmbdasq = cones.ssqr(dims, lmbda)
+        trace.count("ipm.steps")
+        with trace.span("cone"):
+            W, lmbda = cones.compute_scaling(dims, s, z)
+            lmbdasq = cones.ssqr(dims, lmbda)
+        with trace.span("kkt.factor"):
+            solve = factor(W)
         mu = m.gap / deg
 
         # Mehrotra predictor, then corrector
@@ -700,14 +681,17 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
                 mu_aff = cones.sdot(dims, s + stp[:, None] * ds,
                                     z + stp[:, None] * dz) / deg
                 sigma = torch.clamp(mu_aff / mu, 0.0, 1.0) ** EXPON
-                combined = (-lmbdasq - cones.sprod(dims, ds_w, dz_w) +
-                            (sigma * mu)[:, None] * e)
+                with trace.span("cone"):
+                    combined = (-lmbdasq - cones.sprod(dims, ds_w, dz_w) +
+                                (sigma * mu)[:, None] * e)
                 dx, dy, dz, ds = newton(solve, lmbda, W, rx, ry, rz,
                                         combined)
-            ds_w = cones.scale(dims, W, ds, trans=True, inverse=True)
-            dz_w = cones.scale(dims, W, dz)
-            ts, tz = cones.max_step2(dims, cones.scale2(dims, lmbda, ds_w),
-                                     cones.scale2(dims, lmbda, dz_w))
+            with trace.span("cone"):
+                ds_w = cones.scale(dims, W, ds, trans=True, inverse=True)
+                dz_w = cones.scale(dims, W, dz)
+                ts, tz = cones.max_step2(dims,
+                                         cones.scale2(dims, lmbda, ds_w),
+                                         cones.scale2(dims, lmbda, dz_w))
             tinv = torch.clamp(torch.maximum(ts, tz), min=0.0)
         step = torch.clamp(STEP * torch.where(
             tinv <= 0.0, torch.full_like(tinv, 1.0 / STEP),
@@ -722,38 +706,56 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
         return (xsp.where(bad, x, xn), ysp.where(bad, y, yn),
                 _where(bad, s, sn), _where(bad, z, zn), st)
 
-    x, y, s, z = initial_point()
-    m = metrics_of(x, y, s, z)[3]
-    it = torch.zeros((B,), dtype=torch.int32, device=dev)
-    status = torch.full((B,), RUNNING, dtype=torch.int32, device=dev)
-    if o.show_progress:
-        print("     pcost       dcost       gap    pres   dres")
-    while bool((status == RUNNING).any()):
-        live = status == RUNNING
-        rx, ry, rz, mm = metrics_of(x, y, s, z)
+    with trace.span("ipm"):
+        with trace.span("sync"):
+            # its index list is copied to the device: the host waits
+            e = cones.cone_e(dims, dtype, dev)
+        resx0 = torch.clamp(xsp.norm(q), min=1.0)
+        resy0 = torch.clamp(ysp.norm(b), min=1.0)
+        resz0 = torch.clamp(cones.snrm2(dims, h), min=1.0)
+        x, y, s, z = initial_point()
+        m = metrics_of(x, y, s, z)[3]
+        it = torch.zeros((B,), dtype=torch.int32, device=dev)
+        status = torch.full((B,), RUNNING, dtype=torch.int32, device=dev)
         if o.show_progress:
-            for i in torch.nonzero(live).flatten().tolist():
-                print(f"{int(it[i]):2d}: {float(mm.pcost[i]): .4e} "
-                      f"{float(mm.dcost[i]): .4e} {float(mm.gap[i]): .0e} "
-                      f"{float(mm.pres[i]): .0e} {float(mm.dres[i]): .0e}")
-        converged = (mm.pres <= o.feastol) & (mm.dres <= o.feastol) & (
-            (mm.gap <= o.abstol) | (torch.isfinite(mm.relgap) &
-                                    (mm.relgap <= o.reltol)))
-        new_status = torch.where(
-            converged, OPTIMAL,
-            torch.where(it >= o.maxiters, UNKNOWN, RUNNING)).to(torch.int32)
-        stepping = live & (new_status == RUNNING)
-        if bool(stepping.any()):
-            xn, yn, sn, zn, st = do_step(x, y, s, z, rx, ry, rz, mm)
-            x = xsp.where(stepping, xn, x)
-            y = ysp.where(stepping, yn, y)
-            s = _where(stepping, sn, s)
-            z = _where(stepping, zn, z)
-            new_status = torch.where(stepping, st, new_status)
-        status = torch.where(live, new_status, status)
-        it = torch.where(live, it + 1, it)
-        m = Metrics(*(torch.where(live, a, b_) for a, b_ in zip(mm, m)))
-    return x, y, s, z, it, status, m
+            print("     pcost       dcost       gap    pres   dres")
+        while _any(status == RUNNING):
+            live = status == RUNNING
+            rx, ry, rz, mm = metrics_of(x, y, s, z)
+            if o.show_progress:
+                with trace.span("sync"):
+                    for i in torch.nonzero(live).flatten().tolist():
+                        print(f"{int(it[i]):2d}: {float(mm.pcost[i]): .4e} "
+                              f"{float(mm.dcost[i]): .4e} "
+                              f"{float(mm.gap[i]): .0e} "
+                              f"{float(mm.pres[i]): .0e} "
+                              f"{float(mm.dres[i]): .0e}")
+            converged = (mm.pres <= o.feastol) & (mm.dres <= o.feastol) & (
+                (mm.gap <= o.abstol) | (torch.isfinite(mm.relgap) &
+                                        (mm.relgap <= o.reltol)))
+            new_status = torch.where(
+                converged, OPTIMAL,
+                torch.where(it >= o.maxiters, UNKNOWN, RUNNING)).to(
+                    torch.int32)
+            stepping = live & (new_status == RUNNING)
+            if _any(stepping):
+                xn, yn, sn, zn, st = do_step(x, y, s, z, rx, ry, rz, mm)
+                x = xsp.where(stepping, xn, x)
+                y = ysp.where(stepping, yn, y)
+                s = _where(stepping, sn, s)
+                z = _where(stepping, zn, z)
+                new_status = torch.where(stepping, st, new_status)
+            status = torch.where(live, new_status, status)
+            it = torch.where(live, it + 1, it)
+            m = Metrics(*(torch.where(live, a, b_) for a, b_ in zip(mm, m)))
+        return x, y, s, z, it, status, m
+
+
+def _any(mask):
+    """bool(mask.any()): the loop's wait for the device."""
+    with trace.span("sync"):
+        return bool(mask.any())
+
 
 
 def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None, initvals=None,
@@ -778,7 +780,7 @@ def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None, initvals=None,
     one entry per q or s block (convert.scaling_instance).  initvals
     may be partial: x and y default to zero, s and z to the cone's
     identity.  options['profile'] = <directory> writes the solve's
-    torch.profiler trace there (_profile_ctx).
+    torch.profiler trace there (trace._profile_ctx).
 
     Custom vector spaces (reference coneprog.py:378-402): passing any of
     xnewcopy/xdot/xscal/xaxpy makes x and q elements of the user's
@@ -798,9 +800,9 @@ def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None, initvals=None,
     custom = xops is not None or yops is not None
     order = None if (custom or callable(G) or callable(P)) else _kkt_order(
         _veclen(q), _veclen(h), _veclen(b))
-    with _dispatch_ctx(order):
+    with trace.root("coneqp"), _dispatch_ctx(order):
         dev = _solve_device(*_tree_leaves(q), h, G, P, A, *_tree_leaves(b))
-        with _profile_ctx(options, dev):
+        with trace._profile_ctx(options, dev):
             return _coneqp_impl(P, q, G, h, dims, A, b, initvals, kktsolver,
                                 options, dev, xops, yops)
 
@@ -884,5 +886,7 @@ def qp(P, q, G=None, h=None, A=None, b=None, solver=None, initvals=None,
         return _qp_route(solver, P, q, G, h, A, b, options)
     if G is None and h is None:
         raise ValueError("qp requires inequality constraints G, h")
-    return coneqp(P, q, G, h, {"l": int(_numel(h))}, A, b, initvals=initvals,
-                  kktsolver=kktsolver, options=options)
+    with trace.root("qp"):
+        return coneqp(P, q, G, h, {"l": int(_numel(h))}, A, b,
+                      initvals=initvals, kktsolver=kktsolver,
+                      options=options)
