@@ -44,6 +44,12 @@ Phases (any failure exits non-zero and prints no result):
      n=200, with times; K4 through kvxopt_tpu_torch.ops.batched_cholesky;
      factor-only scaling rows (B, n) = (16,1024), (8,2048), (2,4096) for
      K1, K4 and the plain version, in TFLOP/s = B n^3/3/t;
+  2b. K5 (the f64 Cholesky solve) against its plain version at
+     (B, n, k) = (32,1010,1), (32,1010,11), (1,1010,1), (1,1010,11) and
+     (32,1010,16|64|128), with
+     K5, plain and torch.cholesky_solve host times, device times beside
+     K5's bound, and K5's launches in one portfolio-b32 call (the
+     benchmark's problem), by the ops counter and the program's record;
   3. batched_qp_solver_mixed on 16 random QPs (n=512, m=1024 orthant,
      f64 state, abstol/feastol 1e-7): every lane optimal, KKT residuals
      < 1e-6, K1-K3 launched during the solve;
@@ -163,9 +169,9 @@ Phases (any failure exits non-zero and prints no result):
      pack, unpack, sdot, snrm2, compute_scaling, scale (four modes) and
      scale2 on the card against CPU tensors with one W: at the interior
      pair (s + e, z + e) of that solution all to 1e-10, at s and z
-     themselves likewise except compute_scaling's MISC_COND outputs
-     (1e-6), printed beside their change on the CPU under a 1e-15
-     relative change of s and z; (c) solvers.qp on phase 3's lane 0 with
+     themselves likewise except the MISC_COND outputs, sdot and
+     compute_scaling's (1e-6), printed beside their change on the CPU
+     under a 1e-15 relative change of s and z and sdot's condition; (c) solvers.qp on phase 3's lane 0 with
      options['profile']: one Chrome trace that parses and holds CUDA
      kernel events; the call without the key writes nothing;
  17. "custom spaces and the multi-device layer": (a) coneqp on phase 7's
@@ -255,7 +261,7 @@ Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
 and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
 synchronizing calls per IPM iteration.  The line before the card's line
 is the kernels line: per kernel its launches on the main path (phase 7;
-K4: phase 2), in phase 14(b) (launches_phase14), in phase 16(a)'s
+K4: phase 2; K5: one portfolio-b32 call, phase 2b), in phase 14(b) (launches_phase14), in phase 16(a)'s
 group=1 run (launches_phase16) and in phase 17(e) (launches_phase17),
 its error against
 the plain version, its time, the plain version's and one PyTorch call's
@@ -303,6 +309,10 @@ B_AR, NB_AR, NC_AR = 16, K_GRID, 64
 WORLD_S = 300.0
 T0 = time.perf_counter()
 POOL = None     # the worker processes of the CPU solves
+
+
+# the f32 kernels; K5, the f64 Cholesky solve, runs on the f64 paths
+F32_KERNELS = ("K1", "K2", "K3", "K4")
 
 
 def fail(msg):
@@ -1168,6 +1178,116 @@ def phase2(dev):
     return row, launches["K4"]
 
 
+# K5 at portfolio-b32's and portfolio-single's solves: n = 1010, k = 1
+# (the Newton solves) and k = 11 (K^-1 A' with p = 11); then wider
+# right-hand sides at B = 32, on both sides of kkt.K5_MAX_K = 64, where
+# the plain version takes over
+K5_TIMES = ((32, 1010, 1), (32, 1010, 11), (1, 1010, 1), (1, 1010, 11),
+            (32, 1010, 16), (32, 1010, 64), (32, 1010, 128))
+K5_KEYS = ("chol_solve64_kernel",)
+# the plain version's kernels: cuBLAS's batched and single trsm and trsv
+TRSM_KEYS = ("trsm", "trsv")
+
+
+def k5_work(Bn, n, k):
+    """Bytes and flops of K5 at (B, n, k): the lower triangle of each
+    factor read once (the kernel reads it once per sweep), R read and X
+    written once; n^2 k flops a sweep and lane."""
+    return 8 * Bn * (n * (n + 1) // 2 + 2 * n * k), 2 * Bn * n * n * k
+
+
+def k5_portfolio_call(dev):
+    """One portfolio-b32 call (the benchmark's problem, seed 1, after one
+    warm call): K5's launches by the ops counter and by the program's
+    record, and the shapes it ran at."""
+    from benchmark.problems import portfolio
+    from kvxopt_tpu_torch import ConeDims, parallel, trace
+    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch.solvers.coneprog import OPTIMAL
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmark", "configs", "portfolio.json")) as f:
+        cfg = json.load(f)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    d = portfolio.make(cfg, gen, 32, dev, torch.float64)
+    solve = parallel.batched_qp_solver(ConeDims(l=cfg["n"]))
+    args = [d[key] for key in ("P", "q", "G", "h", "A", "b")]
+    solve(*args)
+    torch.cuda.synchronize()
+    cl.reset_launches()
+    out = solve(*args)
+    status = out[5].cpu()
+    rec = trace.calls()[-1]
+    shapes = {f"{kn},{n},{k}": c for (kn, n, k), c in
+              cl.LAUNCH_SHAPES.items() if kn == "K5"}
+    print(f"K5 in one portfolio-b32 call: launches {cl.LAUNCHES['K5']}, "
+          f"record k5.launches {rec.counters.get('k5.launches')}, "
+          f"ipm.steps {rec.counters.get('ipm.steps')}, shapes {shapes}, "
+          f"optimal {int((status == OPTIMAL).sum())}/32", flush=True)
+    check(cl.LAUNCHES["K5"] > 0 and
+          rec.counters.get("k5.launches") == cl.LAUNCHES["K5"],
+          "K5: the portfolio-b32 call did not go through K5")
+    return cl.LAUNCHES["K5"]
+
+
+def k5(dev):
+    """K5 against its plain version at K5_TIMES, then its times: host
+    median of 20 for K5, the plain version (two solve_triangular calls)
+    and torch.cholesky_solve, device time per call from one profiler
+    window each (K5 warm, and cold behind a 64 MB write), beside its
+    bound; then its launches in one portfolio-b32 call.  -> the K5 row
+    of the kernels line (the first shape) and those launches."""
+    from kvxopt_tpu_torch.ops import chol_ls as cl, chol_solve64 as c64
+    scratch = torch.empty(16 * 2 ** 20, device=dev)
+    row = None
+    for Bn, n, k in K5_TIMES:
+        g = torch.Generator(device=dev).manual_seed(11)
+        G = torch.randn((Bn, 2 * n, n), generator=g, device=dev,
+                        dtype=torch.float64)
+        L = torch.linalg.cholesky(G.mT @ G + n * torch.eye(
+            n, device=dev, dtype=torch.float64))
+        b = torch.randn((Bn, n) if k == 1 else (Bn, n, k), generator=g,
+                        device=dev, dtype=torch.float64)
+        b3 = b if k > 1 else b[..., None]
+        x = c64.chol_solve64(L, b)
+        xr = cl.chol_solve_ls_ref(L, None, b)
+        err = float((x - xr).abs().max() / xr.abs().max())
+        check(err < 1e-12, f"K5 B={Bn} n={n} k={k}: disagrees with plain "
+              f"({err:.3e})")
+
+        def kern():
+            return c64.chol_solve64(L, b)
+
+        def plain():
+            return cl.chol_solve_ls_ref(L, None, b)
+
+        def lib():
+            return torch.cholesky_solve(b3, L)
+
+        t = dict(err=err, ms=median_ms(kern), plain=median_ms(plain),
+                 lib=median_ms(lib))
+        warm = profile_ms(kern, keys=K5_KEYS)
+        cold = profile_ms(kern, keys=K5_KEYS, flush=scratch.zero_)
+        pl = profile_ms(plain, keys=TRSM_KEYS)
+        libd = profile_ms(lib)
+        bd, by = bound(*k5_work(Bn, n, k))
+        t.update(bound=bd, bound_by=by)
+        if None not in (warm, cold, pl, libd):
+            t.update(dev=warm[1], dev_cold=cold[1], dev_plain=pl[1],
+                     dev_lib=libd[0])
+            dtxt = (f"; device: K5 {warm[1]:.4f} ms warm, {cold[1]:.4f} "
+                    f"cold ({100 * bd / cold[1]:.1f}% of the bound), plain "
+                    f"trsm/trsv {pl[1]:.4f}, cholesky_solve {libd[0]:.4f}")
+        else:
+            dtxt = "; device time not measured"
+        print(f"time K5 B={Bn} n={n} k={k}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, cholesky_solve {t['lib']:.4f} ms (host, "
+              f"median of 20); bound {bd:.4f} ms ({by}); max|x-xref|/"
+              f"max|xref| {err:.2e}{dtxt}", flush=True)
+        if row is None:
+            row = t
+    return row, k5_portfolio_call(dev)
+
+
 def scaling_rows(dev):
     """Factor-only rows as bench.py's kernel-scaling rows:
     TFLOP/s = B n^3 / 3 / t for K1, K4 and the plain version."""
@@ -1230,7 +1350,8 @@ def kernel_bounds():
     return {"K1": bound(*factor_work(B, N, True)),
             "K2": bound(*solve_work(B, N, 1, 2)),
             "K3": bound(*solve_work(B, N, N, 1)),
-            "K4": bound(*factor_work(B, N, False))}
+            "K4": bound(*factor_work(B, N, False)),
+            "K5": bound(*k5_work(*K5_TIMES[0]))}
 
 
 def residuals(P, q, G, h, x, s, z, A=None, b=None, y=None):
@@ -1746,7 +1867,7 @@ def nonlinear(dev):
               f"{syncs / it:.1f} per iteration")
         check(sol["status"] == "optimal",
               f"nonlinear {name}: status {sol['status']}")
-        check(not any(launches.values()),
+        check(not any(launches[k] for k in F32_KERNELS),
               f"nonlinear {name}: a kernel of K1-K4 ran on the f64 path")
         out[name] = (host(sol["x"]), sol["iterations"], sol["status"],
                      sol["primal objective"])
@@ -2288,7 +2409,7 @@ def modeling(dev):
         on_card(f"modeling {name}", *(sol[k] for k in "xysz"))
         check(sol["status"] == prob.status == "optimal",
               f"modeling {name}: status {prob.status}")
-        check(not any(launches.values()),
+        check(not any(launches[k] for k in F32_KERNELS),
               f"modeling {name}: a kernel of K1-K4 ran on the f64 path")
         values = [np.asarray(v.value).ravel() for v in xs]
         objective = float(prob.objective.value()[0])
@@ -2362,8 +2483,8 @@ def modeling(dev):
     torch.cuda.synchronize()
     it = int(seen[0][3])
     check(seen[0][0].device.type == "cuda", "modeling osqp: not on the card")
-    check(not any(cl.LAUNCHES.values()), "modeling osqp: a kernel of K1-K4 "
-          "ran")
+    check(not any(cl.LAUNCHES[k] for k in F32_KERNELS),
+          "modeling osqp: a kernel of K1-K4 ran")
     ts = warm_times(qp_osqp)
     syncs = count_syncs(qp_osqp)
     # the profiled call stops at OSQP_PROFILED iterations: a trace of the
@@ -2713,14 +2834,17 @@ def misc_calls(s, z, u, W=None, lam=None):
     return out, Wc, lamc
 
 
-# compute_scaling's outputs at an optimum, where s and z are nearly
-# complementary: the q blocks' hyperbolic norms and the s blocks'
-# eigenvalues lose digits to cancellation, differently in the card's and
-# the CPU's summation order.  misc_on_card holds them there to 1e-6 and
-# prints how far a relative change of 1e-15 in s and z moves them on the
+# sdot and compute_scaling's outputs at an optimum, where s and z are
+# nearly complementary: s'z is a sum of terms whose magnitudes add up to
+# ~1e7 times s'z (lane 0 of phase 7's l+q+s problems), and the q blocks'
+# hyperbolic norms and the s blocks' eigenvalues cancel alike, so each
+# loses digits differently in the card's and the CPU's summation order
+# (the CPU's own s'z moves by 1e-10 to 1e-9 under a reordering of its
+# terms).  misc_on_card holds them there to 1e-6, prints sdot's condition
+# and how far a relative change of 1e-15 in s and z moves them on the
 # CPU alone; at the interior pair (s + e, z + e) every output is held to
 # 1e-10
-MISC_COND = ("lambda", "beta", "v", "r r'", "rti rti'")
+MISC_COND = ("sdot", "lambda", "beta", "v", "r r'", "rti rti'")
 
 
 def cone_identity(dims, like):
@@ -2801,9 +2925,12 @@ def misc_on_card(dev):
     misc_agree("misc at (s + e, z + e)", s + e, z + e, u, dev, 1e-10)
     gap = misc_agree("misc at the optimum", s, z, u, dev, 1e-6)
     sens = scaling_sensitivity(s, z)
+    t = (s * z).cpu().reshape(-1)
+    cond = float(t.abs().sum() / t.sum().abs().clamp(min=1e-300))
     print(f"misc at the optimum: {', '.join(MISC_COND)} move by {sens:.2e} "
           f"on the CPU when s and z change by 1e-15 relative; the card's "
-          f"gap {gap:.2e} is {gap / max(sens, 1e-300):.3g} times that")
+          f"gap {gap:.2e} is {gap / max(sens, 1e-300):.3g} times that; "
+          f"sdot's condition sum|s_i z_i|/|s'z| {cond:.3g}")
 
 
 def profile_option(dev):
@@ -4181,6 +4308,8 @@ def main():
     rows["K4"], k4_launches = phase2(dev)
     scaling_rows(dev)
     stamp("phase 2")
+    rows["K5"], k5_launches = k5(dev)
+    stamp("phase 2b")
 
     gpu, _, _, walls3 = solve_phase("slice", dev, *slice_data("slice"))
     stamp("phase 3")
@@ -4230,14 +4359,17 @@ def main():
     stamp("phase 18")
 
     launches["K4"] = k4_launches
+    launches["K5"] = k5_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",
                 "K2": "kvxopt_tpu/ops/chol_ls.py:517",
                 "K3": "kvxopt_tpu/ops/chol_ls.py:592",
-                "K4": "kvxopt_tpu/ops/chol.py:139"}
+                "K4": "kvxopt_tpu/ops/chol.py:139",
+                "K5": "none (the JAX package leaves f64 solves to XLA)"}
     sources = {"K1": "kvxopt_tpu_torch/csrc/chol_ls.cu",
                "K2": "kvxopt_tpu_torch/csrc/chol_solve.cu",
                "K3": "kvxopt_tpu_torch/csrc/tri_solve.cu",
-               "K4": "kvxopt_tpu_torch/csrc/chol.cu"}
+               "K4": "kvxopt_tpu_torch/csrc/chol.cu",
+               "K5": "kvxopt_tpu_torch/csrc/chol_solve64.cu"}
     bounds = kernel_bounds()
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],

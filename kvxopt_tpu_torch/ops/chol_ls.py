@@ -25,9 +25,10 @@ import torch
 BS = 128
 
 # Kernel launches per wrapper, counted where the kernel is launched (K4's
-# wrapper is ops/chol.py), and the same launches by (kernel, n, k): n the
-# matrix order, k the right-hand sides (0 for a factor).
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+# wrapper is ops/chol.py, K5's ops/chol_solve64.py), and the same launches
+# by (kernel, n, k): n the matrix order, k the right-hand sides (0 for a
+# factor).
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 LAUNCH_SHAPES = collections.Counter()
 
 # Which of K1/K4's two launch paths runs where n > 128: None (the rule in
@@ -70,6 +71,9 @@ def _lib():
         lib.kvx_tri.argtypes = [vp, vp, vp, vp, ci, ci, ci, ll, ll, ci, ci,
                                 vp]
         lib.kvx_tri.restype = ci
+        lib.kvx_chol_solve64.argtypes = [vp, vp, vp, ci, ci, ci, ll, ll, ll,
+                                         ci, ci, ci, ci, vp]
+        lib.kvx_chol_solve64.restype = ci
         lib._kvx_typed = True
     return lib
 

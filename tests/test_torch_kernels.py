@@ -1,5 +1,5 @@
-"""Kernels K1/K2/K3 of kvxopt_tpu_torch.ops.chol_ls and K4 of
-kvxopt_tpu_torch.ops.chol.
+"""Kernels K1/K2/K3 of kvxopt_tpu_torch.ops.chol_ls, K4 of
+kvxopt_tpu_torch.ops.chol and K5 of kvxopt_tpu_torch.ops.chol_solve64.
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 against the JAX package's Pallas kernels run in interpret mode (as
@@ -19,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from kvxopt_tpu_torch import ops
+from kvxopt_tpu_torch import kkt, ops, trace
 from kvxopt_tpu_torch.ops import _build, chol as ch, chol_ls as cl
+from kvxopt_tpu_torch.ops import chol_solve64 as c64
 
 SHAPES = [(2, 128), (2, 200), (3, 256)]
 
@@ -527,3 +528,290 @@ def test_nan_lane_leaves_neighbour_finite_on_card(cuda, n, bad):
         assert bool(torch.isnan(L[1]).any())
         Lr = ch.batched_cholesky_ref(K[:1])
         assert float((L[:1] - Lr).abs().max() / Lr.abs().max()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# K5: the f64 Cholesky solve.  On the CPU its wrapper runs the plain
+# version; kkt._chol_solve routes by (device, dtype, k) alone.
+# ---------------------------------------------------------------------------
+
+def spd64(B, n, seed=1):
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, 2 * n, n))
+    return torch.from_numpy(np.einsum("bij,bik->bjk", G, G) + n * np.eye(n))
+
+
+@pytest.mark.parametrize("k", [1, 11])
+def test_k5_plain_is_a_cholesky_solve(k):
+    K = spd64(3, 40)
+    L = torch.linalg.cholesky(K)
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 40) if k == 1 else (3, 40, k)))
+    x = c64.chol_solve64(L, b)
+    b3 = b[..., None] if k == 1 else b
+    xr = torch.cholesky_solve(b3, L)
+    assert x.shape == b.shape
+    torch.testing.assert_close(x.reshape(xr.shape), xr, rtol=1e-12,
+                               atol=0)
+
+
+def test_k5_cpu_takes_plain_path(monkeypatch):
+    """A CPU f64 factor never reaches the kernel library, through the
+    wrapper or through kkt's solve, and counts no K5 launch."""
+    def forbidden(*a, **k):
+        raise AssertionError("CPU path consulted CUDA or the kernels")
+    monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
+    monkeypatch.setattr(c64, "_lib", forbidden)
+    before = dict(cl.LAUNCHES)
+    L = torch.linalg.cholesky(spd64(2, 70))
+    c64.chol_solve64(L, torch.ones((2, 70)))
+    kkt._spd_chol(spd64(2, 70), 0.0)(torch.ones((2, 70, 11)))
+    assert cl.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dev,dtype,n,k,route", [
+    ("cuda", torch.float64, 1010, 1, True),
+    ("cuda", torch.float64, 1010, 11, True),
+    ("cuda", torch.float64, 1010, kkt.K5_MAX_K, True),
+    ("cuda", torch.float64, 1010, kkt.K5_MAX_K + 1, False),
+    ("cuda", torch.float64, 78848, 1, True),
+    ("cuda", torch.float64, 78849, 1, False),
+    ("cuda", torch.float32, 1010, 1, False),
+    ("cpu", torch.float64, 1010, 1, False),
+    ("cpu", torch.float32, 1010, 11, False),
+])
+def test_solve_route(dev, dtype, n, k, route):
+    """The rule kkt._chol_solve applies to a dense factor: the device, the
+    dtype, k, and whether K5's shared memory holds the order n (up to
+    78848), nothing else."""
+    assert kkt.k5_route(torch.device(dev), dtype, n, k) is route
+
+
+def _k5_fill_C(B, n, k, kb, sms=132):
+    """The cluster size that fills the SMs (k5_plan's first choice)."""
+    nb, nct, C = -(-n // 32), -(-k // kb), 1
+    while C < 8 and 8 * C <= nb and 2 * C * B * nct <= sms:
+        C *= 2
+    return C
+
+
+@pytest.mark.parametrize("B,n,k", [(32, 1010, 1), (32, 1010, 11),
+                                   (1, 1010, 1), (1, 1010, 16), (32, 11, 1),
+                                   (1, 1, 1), (300, 1010, 1), (2, 5000, 16),
+                                   (2, 20000, 1), (4, 129, 33),
+                                   (32, 4000, 11), (67, 4000, 1),
+                                   (7, 14880, 11), (34, 14880, 1),
+                                   (32, 40000, 16), (1, 78848, 1)])
+def test_k5_plan_fits_the_card(B, n, k):
+    """K5's launch plan: a power-of-two column tile up to 8, clusters of
+    1-8 CTAs of 4 warps, each warp owning a block, a ring of 3-8 stages
+    per warp and shared memory within the card's 227 KB.  The clusters
+    fill at most the 132 SMs, except where shared memory needs more CTAs
+    to share a lane's accumulators: then one cluster size less would not
+    fit."""
+    kb, C, S = c64.k5_plan(B, n, k, 132)
+    nb = -(-n // 32)
+    assert kb in (1, 2, 4, 8) and kb <= max(1, 2 * k - 1)
+    assert C in (1, 2, 4, 8) and (C == 1 or 4 * C <= nb)
+    assert 3 <= S <= 8
+    assert c64.k5_smem(nb, C, kb, S) <= 232448
+    if C > _k5_fill_C(B, n, k, kb):
+        assert c64.k5_smem(nb, C // 2, kb, 3) > 232448
+
+
+def test_k5_plan_fills_the_card_at_the_batched_shape():
+    """portfolio-b32's solves (B = 32, n = 1010): at k = 1 clusters of 4
+    CTAs, 128 of the 132 SMs, 16 warps a lane; at k = p = 11 two column
+    tiles of 8, each a cluster of 2; a single solve takes 8 CTAs."""
+    assert c64.k5_plan(32, 1010, 1, 132)[:2] == (1, 4)
+    assert c64.k5_plan(32, 1010, 11, 132)[:2] == (8, 2)
+    assert c64.k5_plan(1, 1010, 1, 132)[:2] == (1, 8)
+    assert c64.k5_plan(1, 1010, 11, 132)[:2] == (8, 8)
+
+
+def test_k5_plan_grows_clusters_for_shared_memory():
+    """Where a lane's accumulators outgrow a CTA that fills the SMs, the
+    cluster grows past them and the clusters run in waves: at B = 7,
+    n = 14880, k = 11 one CTA a lane holds no plan even at kb = 1, and
+    clusters of 8 hold kb = 4 (3 column tiles, 168 CTAs).  Past
+    n = 78848 no plan fits, whatever B and k."""
+    assert c64.k5_plan(7, 14880, 11, 132) == (4, 8, 3)
+    assert c64.k5_smem(465, 1, 1, 3) > 232448
+    assert c64.k5_fits(78848)
+    for B, k in ((1, 1), (32, 11), (300, 16)):
+        assert c64.k5_plan(B, 78849, k, 132) is None
+    assert not c64.k5_fits(78849)
+
+
+# ---------------------------------------------------------------------------
+# K5 against its plain version (card only).
+# ---------------------------------------------------------------------------
+
+def spd64_on(B, n, cond, dev, seed=1):
+    """B SPD matrices Q diag(d) Q' on the card, d log-spaced from 1 to
+    1/cond, Q the orthogonal factor of a Gaussian matrix."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Q = torch.linalg.qr(torch.randn((B, n, n), generator=g, device=dev,
+                                    dtype=torch.float64))[0]
+    d = torch.logspace(0, -np.log10(cond), n, device=dev,
+                       dtype=torch.float64)
+    return (Q * d) @ Q.mT
+
+
+K5_CASES = [(B, n, k) for B in (1, 32) for n in (11, 127, 128, 129, 1010)
+            for k in (1, 11)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cond", [1e2, 1e12])
+@pytest.mark.parametrize("B,n,k", K5_CASES)
+def test_k5_matches_plain_on_card(cuda, B, n, k, cond):
+    """One launch per call.  Both K5 and the plain version are backward
+    stable: each x solves (L + E)(L + E)' x = b with |E| <= c n u |L|
+    (u = 2^-53), so the residual against L L' is within 8 n u of
+    ||L||^2 ||x|| per lane whatever the conditioning, and the two x agree
+    to within 8 n u cond(K), capped at 1e-3 (at cond 1e12 the residual
+    carries the check)."""
+    K = spd64_on(B, n, cond, cuda)
+    L = torch.linalg.cholesky(K)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b = torch.randn((B, n) if k == 1 else (B, n, k), generator=g,
+                    device=cuda, dtype=torch.float64)
+    before = cl.LAUNCHES["K5"]
+    x = c64.chol_solve64(L, b)
+    assert cl.LAUNCHES["K5"] == before + 1
+    assert x.shape == b.shape and x.is_contiguous()
+    xr = cl.chol_solve_ls_ref(L, None, b)
+    u = 2.0 ** -53
+    x3, b3 = x.reshape(B, n, k), b.reshape(B, n, k)
+    res = torch.linalg.norm(L @ (L.mT @ x3) - b3, dim=(1, 2))
+    scale = torch.linalg.matrix_norm(L) ** 2 * torch.linalg.norm(
+        x3, dim=(1, 2))
+    assert float((res / scale).max()) < 8 * n * u
+    err = torch.linalg.norm(x3 - xr.reshape(B, n, k), dim=(1, 2)) / \
+        torch.linalg.norm(xr.reshape(B, n, k), dim=(1, 2))
+    assert float(err.max()) < min(1e-3, 8 * n * u * cond)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,k", [(200, 300, 1), (8, 2048, 1), (3, 700, 16),
+                                   (2, 64, 2), (5, 33, 4)])
+def test_k5_launch_plans_on_card(cuda, B, n, k):
+    """The plan's other shapes: one CTA a lane with several blocks per
+    warp (B = 200), clusters of 8 with two blocks per warp (n = 2048),
+    column tiles of 8 and of 2 and 4, and two blocks in all."""
+    L = torch.linalg.cholesky(spd64_on(B, n, 1e6, cuda))
+    b = torch.randn((B, n, k), device=cuda, dtype=torch.float64)
+    before = cl.LAUNCHES["K5"]
+    x = c64.chol_solve64(L, b)
+    assert cl.LAUNCHES["K5"] == before + 1
+    xr = cl.chol_solve_ls_ref(L, None, b)
+    err = torch.linalg.norm(x - xr, dim=(1, 2)) / torch.linalg.norm(
+        xr, dim=(1, 2))
+    assert float(err.max()) < 8 * n * 2.0 ** -53 * 1e6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,k", [(32, 4000, 11), (67, 4000, 1),
+                                   (7, 14880, 11)])
+def test_k5_large_orders_on_card(cuda, B, n, k):
+    """Large orders, where a lane's accumulators fill a CTA: one CTA a
+    lane (67 lanes, k = 1) or clusters of 4 at kb = 8 (k = 11), and
+    clusters of 8 in waves past the SMs (B = 7, n = 14880), the plan that
+    shared memory forces there.  L = D + E, D's diagonal in [1, 2] and E
+    strictly lower with N(0, 1/n^2) entries, so ||E|| ~ 2/sqrt(n) and
+    cond(L) < 3: both solves are backward stable, so they agree within
+    8 n u cond(L)^2 (the two sweeps)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    U = torch.randn((B, n, n), generator=g, device=cuda,
+                    dtype=torch.float64).triu_(1).div_(n)
+    U.diagonal(dim1=1, dim2=2).uniform_(1.0, 2.0, generator=g)
+    L = U.mT                        # column-major, as cuSOLVER's factors
+    b = torch.randn((B, n, k), generator=g, device=cuda,
+                    dtype=torch.float64)
+    before = cl.LAUNCHES["K5"]
+    x = c64.chol_solve64(L, b)
+    assert cl.LAUNCHES["K5"] == before + 1
+    xr = cl.chol_solve_ls_ref(L, None, b)
+    err = torch.linalg.norm(x - xr, dim=(1, 2)) / torch.linalg.norm(
+        xr, dim=(1, 2))
+    assert float(err.max()) < 8 * n * 2.0 ** -53 * 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,k", [(32, 1010, 11), (3, 200, 5), (2, 129, 33),
+                                   (1, 1010, 16)])
+def test_k5_reads_rhs_in_place_on_card(cuda, B, n, k):
+    """rhs as a transposed view (K^-1 A' in kkt), as a column slice and
+    wider than one column tile (k = 33), and L column-major (cuSOLVER's
+    factor) or row-major: the same x as from contiguous copies, bit for
+    bit."""
+    L = torch.linalg.cholesky(spd64_on(B, n, 1e4, cuda))
+    A = torch.randn((B, k, n), device=cuda, dtype=torch.float64)
+    x = c64.chol_solve64(L, A.mT)
+    assert torch.equal(x, c64.chol_solve64(L, A.mT.contiguous()))
+    assert torch.equal(x, c64.chol_solve64(L.contiguous(), A.mT))
+    xr = cl.chol_solve_ls_ref(L, None, A.mT)
+    assert float((x - xr).abs().max() / xr.abs().max()) < 1e-9
+    W = torch.randn((B, n, k + 3), device=cuda, dtype=torch.float64)
+    assert torch.equal(c64.chol_solve64(L, W[:, :, 2:k + 2]),
+                       c64.chol_solve64(L, W[:, :, 2:k + 2].contiguous()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1010, 1), (1010, 11), (11, 1)])
+def test_k5_nan_lane_on_card(cuda, n, k):
+    """A NaN factor lane (cholesky_nan's) comes out all NaN; the other
+    lanes are bit-equal to their own solve."""
+    K = spd64_on(32, n, 1e6, cuda)
+    K[5, n // 2, n // 2] = -1.0
+    L = cl.cholesky_nan(K)
+    b = torch.randn((32, n, k), device=cuda, dtype=torch.float64)
+    x = c64.chol_solve64(L, b)
+    assert bool(torch.isnan(x[5]).all())
+    keep = [i for i in range(32) if i != 5]
+    assert bool(torch.isfinite(x[keep]).all())
+    assert torch.equal(x[keep], c64.chol_solve64(L[keep].contiguous(),
+                                                 b[keep]))
+    assert torch.equal(x[:1], c64.chol_solve64(L[:1], b[:1]))
+
+
+@pytest.mark.cuda
+def test_k5_refuses_bad_inputs(cuda):
+    L = torch.linalg.cholesky(spd64_on(2, 64, 1e2, cuda))
+    b = torch.ones((2, 64), device=cuda, dtype=torch.float64)
+    before = cl.LAUNCHES["K5"]
+    with pytest.raises(TypeError):
+        c64.chol_solve64(L.float(), b)
+    with pytest.raises(TypeError):
+        c64.chol_solve64(L, b.float())
+    gappy = torch.zeros((2, 64, 80), device=cuda,
+                        dtype=torch.float64)[:, :, :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        c64.chol_solve64(gappy, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        c64.chol_solve64(gappy.mT, b)
+    with pytest.raises(ValueError, match="does not match"):
+        c64.chol_solve64(L, b[:, :60])
+    with pytest.raises(ValueError, match="expected"):
+        c64.chol_solve64(L[:, :, :60], b)
+    with pytest.raises(ValueError, match="mixed devices"):
+        c64.chol_solve64(L, b.cpu())
+    assert cl.LAUNCHES["K5"] == before
+
+
+@pytest.mark.cuda
+def test_k5_counts_in_the_program_record(cuda):
+    """kkt's f64 chol2 solve on the card goes through K5 and says so in the
+    open root's counters."""
+    K = spd64_on(4, 300, 1e3, cuda)
+    trace.clear()
+    with trace.root("qp"):
+        s = kkt._spd_chol(K, 0.0)
+        x = s(torch.ones((4, 300), device=cuda, dtype=torch.float64))
+        s(torch.ones((4, 300, 11), device=cuda, dtype=torch.float64))
+    assert trace.calls()[-1].counters["k5.launches"] == 2
+    xr = cl.chol_solve_ls_ref(torch.linalg.cholesky(K), None,
+                              torch.ones((4, 300), device=cuda,
+                                         dtype=torch.float64))
+    assert float((x - xr).abs().max() / xr.abs().max()) < 1e-10
