@@ -29,15 +29,14 @@ def main(n=8, nmu=16):
         returns.append(float(pbar @ x))
         risks.append(float(np.sqrt(x @ S @ x)))
 
-    # the same sweep as one batched solve
+    # the same sweep as one batched solve: P and q per lane, G and h
+    # shared by the lanes and passed once
     B = nmu
     Ps = np.stack([mu * S for mu in mus])
     qs = np.tile(-pbar, (B, 1))
-    Gs = np.tile(G, (B, 1, 1))
-    hs = np.tile(h, (B, 1))
     vsolve = batched_qp_solver(ConeDims(l=G.shape[0]))
     xb, yb, sb, zb, it, status, metrics = state_to_numpy(
-        vsolve(Ps, qs, Gs, hs))
+        vsolve(Ps, qs, G, h))
     return dict(returns=returns, risks=risks, batch_status=status,
                 batch_x=xb)
 

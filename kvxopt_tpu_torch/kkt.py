@@ -8,7 +8,10 @@ Counterpart of kvxopt_tpu/kkt.py.  A strategy is
 
 solving the scaled Newton system of the JAX package for every lane of a
 batch at once: G is (B, m, n), A (B, p, n), P (B, n, n), the right-hand
-sides (B, .).
+sides (B, .).  `chol2` also takes G (m, n), A (p, n) and P (n, n)
+shared by the lanes: it reads each once, a product with one being a
+single GEMM over the lanes (_mv, _tmv), and keeps per lane only what the
+lane's scaling makes its own (W^{-T} G, K and its factor).
 
 Every strategy of the JAX package is here: the condensed
 normal-equations strategy `chol2` and its mixed-precision forms
@@ -38,12 +41,18 @@ PORTED = STRATEGIES
 
 
 def _mv(M, x):
-    """Batched M @ x for M (B, r, c), x (B, c)."""
+    """Batched M @ x for M (B, r, c), or (r, c) shared by the lanes (one
+    GEMM), and x (B, c)."""
+    if M.ndim == 2:
+        return x @ M.mT
     return torch.matmul(M, x.unsqueeze(-1)).squeeze(-1)
 
 
 def _tmv(M, x):
-    """Batched M' @ x for M (B, r, c), x (B, r)."""
+    """Batched M' @ x for M (B, r, c), or (r, c) shared by the lanes (one
+    GEMM), and x (B, r)."""
+    if M.ndim == 2:
+        return x @ M
     return torch.matmul(x.unsqueeze(-2), M).squeeze(-2)
 
 
@@ -67,7 +76,7 @@ def make_kkt_solver(name, dims: ConeDims, G, A=None, P=None, mnl: int = 0,
         raise ValueError(f"unknown kktsolver {name!r}; expected one of "
                          f"{STRATEGIES}")
     if A is None:
-        A = G.new_zeros((G.shape[0], 0, G.shape[-1]))
+        A = G.new_zeros(G.shape[:-2] + (0, G.shape[-1]))
     edims = dims.with_extra_l(mnl) if mnl else dims
     fn = {"chol2": _kkt_chol2, "chol": _kkt_chol, "qr": _kkt_qr,
           "ldl": _kkt_ldl, "ldl2": _kkt_ldl2,
@@ -89,14 +98,15 @@ def _geff(G, Df, mnl):
 
 
 def _keff(P, H, G):
-    """P + H, or zeros (B, n, n) shaped like G's columns."""
+    """P + H, or zeros (B, n, n) shaped like G's columns ((n, n) where G
+    is shared)."""
     K = None
     for M in (P, H):
         if M is not None:
             K = M if K is None else K + M
     if K is None:
-        B, _, n = G.shape
-        return torch.zeros((B, n, n), dtype=G.dtype, device=G.device)
+        n = G.shape[-1]
+        return G.new_zeros(G.shape[:-2] + (n, n))
     return K
 
 
@@ -152,11 +162,15 @@ def _condensed_solve(edims, W, Gs, A, ksolve, spd_solver):
     """The Newton-system solve of the condensed strategies: uz eliminated,
     K^{-1} applied by ksolve, and with p > 0 the Schur complement
     S = A K^{-1} A' (K^{-1} A' one ksolve with p right-hand sides) solved
-    by spd_solver(S)."""
+    by spd_solver(S).  A (p, n) shared by the lanes is one right-hand
+    side block for every lane's factor, read in place."""
     p = A.shape[-2]
     if p:
-        KiAt = ksolve(A.transpose(-1, -2))
-        ssolve = spd_solver(A @ KiAt)
+        At = A.mT
+        if A.ndim == 2:
+            At = At.expand(Gs.shape[0], *At.shape)
+        KiAt = ksolve(At)
+        ssolve = spd_solver(A @ KiAt if A.ndim == 3 else KiAt.mT @ A.mT)
 
     def solve(bx, by, bz):
         bzs = cones.scale(edims, W, bz, trans=True, inverse=True)

@@ -13,7 +13,11 @@ _dispatched_batch: array-like inputs whose per-instance KKT system has
 an order n + m + p below config.host_dispatch_threshold_batched are
 placed on the CPU and solved there; tensors keep their device, and the
 mixed strategies are never routed.  Each QP driver's call is one root
-span, `batched_qp` (trace.py).
+span, `batched_qp` (trace.py).  The drivers take each operand but q (c)
+either with the batch dimension or without it, shared by every lane
+(one market's risk model across a sweep of q, say): a shared operand is
+held once, never copied per lane, and `chol2` keeps it unbatched down
+to its GEMMs and kernel K5 (kkt.py).
 """
 
 from __future__ import annotations
@@ -49,8 +53,9 @@ def _tensors(*arrays):
 
 
 def _cast(lead, mats, A, b):
-    """mats, A and b cast to lead's dtype and device; A (B, 0, n) and
-    b (B, 0) of zeros where A is None."""
+    """mats, A and b cast to lead's dtype and device, each keeping its
+    shape (a shared operand stays unbatched); A (B, 0, n) and b (B, 0) of
+    zeros where A is None."""
     B, n = lead.shape
     mats = tuple(a.to(dtype=lead.dtype, device=lead.device) for a in mats)
     if A is None:
@@ -59,12 +64,49 @@ def _cast(lead, mats, A, b):
     return mats, A, b
 
 
-def _on_mesh(solve, mesh):
+# the ranks of one QP instance's P, q, G, h, A and b, and of one LP
+# instance's c, G, h, A and b: an operand of one more dimension carries
+# the batch, one of this rank is shared by every lane
+QP_RANKS = (2, 1, 2, 1, 2, 1)
+LP_RANKS = (1, 2, 1, 2, 1)
+
+
+def _lanes_of(args, ranks, index):
+    """args with each batched operand indexed by `index` along its batch;
+    shared operands and None as they are."""
+    return tuple(a if a is None or np.ndim(a) == r else a[index]
+                 for a, r in zip(args, ranks))
+
+
+def _batch_of(args, ranks, lead):
+    """The batch size B (the lanes of args[lead]), after checking that
+    every batched operand of args has B lanes and counting the operands'
+    bytes in the call's record (trace.count_operands)."""
+    B = args[lead].shape[0]
+    for i, (a, r) in enumerate(zip(args, ranks)):
+        if a is not None and a.ndim == r + 1 and a.shape[0] != B:
+            raise ValueError(f"operand {i} has {a.shape[0]} lanes, the "
+                             f"batch has {B}")
+    trace.count_operands(*args)
+    return B
+
+
+def _kkt_view(kktsolver, B, *mats):
+    """The matrices as the KKT strategy takes them: `chol2` reads shared
+    ones as they are; the other strategies get a view of each shared one
+    with a batch dimension of stride 0 (no copy)."""
+    return tuple(M if M is None or M.ndim == 3 or kktsolver == "chol2"
+                 else M.expand(B, *M.shape) for M in mats)
+
+
+def _on_mesh(solve, mesh, ranks, lead):
     """solve(*args) over the 'batch' axis of `mesh` (None: solve itself):
     each rank, called with the whole batch, solves its consecutive slice
-    of it (the axis's rank count must divide B), and the results are
-    gathered, so every rank returns the whole batch, lane by lane as
-    solve gives it.  The JAX package's pjit over P('batch')."""
+    of it (the axis's rank count must divide B, the lanes of args[lead]),
+    and the results are gathered, so every rank returns the whole batch,
+    lane by lane as solve gives it.  Operands shared by the lanes (of
+    their instance's rank in `ranks`) go to every rank whole.  The JAX
+    package's pjit over P('batch')."""
     if mesh is None:
         return solve
     from .mesh import Axis
@@ -72,9 +114,8 @@ def _on_mesh(solve, mesh):
 
     def sharded(*args):
         args = _tensors(*args)
-        B = args[0].shape[0]
-        mine = ax.part(B)
-        out = solve(*(a[mine] for a in args))
+        B = args[lead].shape[0]
+        out = solve(*_lanes_of(args, ranks, ax.part(B)))
         return _tree_map(lambda t: ax.gather(t, B), out)
     return sharded
 
@@ -83,15 +124,22 @@ def make_qp_solver(dims, kktsolver=None, options=None, with_eq=False):
     """Returns solve(P, q, G, h[, A, b]) -> state tuple
     (x, y, s, z, iterations, status, metrics).
 
-    The inputs carry a leading batch dimension (P (B,n,n), q (B,n),
-    G (B,m,n), h (B,m), A (B,p,n), b (B,p)), in place of the JAX
-    package's vmap; numpy inputs go to config.default_device (the
-    card).  A single instance (q of shape (n,)) is solved as a batch of
-    one and returned without the batch dimension, as the JAX function
-    returns it.  A and b are optional at every call, as in the
-    JAX function, which takes with_eq only for its signature.  The KKT
-    strategy defaults to 'chol' with q or s cones and 'chol2' otherwise
-    (the reference coneqp default)."""
+    q carries a leading batch dimension, q (B,n), in place of the JAX
+    package's vmap; each of P, G, h, A and b either carries it too
+    (P (B,n,n), G (B,m,n), h (B,m), A (B,p,n), b (B,p)) or is one
+    instance's (P (n,n), G (m,n), h (m,), A (p,n), b (p,)), shared by
+    every lane and held once: no copy per lane is made.  `chol2` reads a
+    shared P, G and A as they are; the other strategies get views of
+    them with a batch dimension of stride 0.  A batched operand whose
+    lanes differ from q's raises ValueError.  Numpy inputs go to
+    config.default_device (the card).  A single instance (q of shape
+    (n,)) is solved as a batch of one and returned without the batch
+    dimension, as the JAX function returns it.  A and b are optional at
+    every call, as in the JAX function, which takes with_eq only for its
+    signature.  The call counts its operands' bytes in the record's
+    operand_bytes (trace.count_operands).  The KKT strategy defaults to
+    'chol' with q or s cones and 'chol2' otherwise (the reference coneqp
+    default)."""
     dims = ConeDims.from_dict(dims)
     o = _options(options)
     if kktsolver is None:
@@ -107,9 +155,11 @@ def make_qp_solver(dims, kktsolver=None, options=None, with_eq=False):
                 return (*(a[0] for a in out[:6]),
                         type(out[6])(*(a[0] for a in out[6])))
             (P, G, h), A, b = _cast(q, (P, G, h), A, b)
-            factor = kkt.make_kkt_solver(kktsolver, dims, G, A, P,
-                                         reg=o.kktreg, ozaki=o.ozaki,
-                                         facref=o.facref)
+            B = _batch_of((P, q, G, h, A, b), QP_RANKS, 1)
+            factor = kkt.make_kkt_solver(
+                kktsolver, dims, *_kkt_view(kktsolver, B, G, A, P),
+                reg=o.kktreg, ozaki=o.ozaki, facref=o.facref)
+            h, b = (v.expand(B, -1) for v in (h, b))
             return _coneqp_core(q, h, b, dims, o, factor,
                                 *_matrix_ops(G, A, P))
 
@@ -121,8 +171,9 @@ def make_lp_solver(dims, kktsolver=None, options=None):
     (x, y, s, z, tau, kappa, iterations, status, metrics), metrics a dict
     of pcost, dcost, gap, relgap, pres, dres, pinfres and dinfres: the
     conelp counterpart of make_qp_solver, batched the same way (c (B, n),
-    G (B, m, n), h (B, m), A (B, p, n), b (B, p); a single instance is a
-    batch of one).  The data are taken as given: s-block rows are not
+    G (B, m, n), h (B, m), A (B, p, n), b (B, p), each of G, h, A and b
+    batched or shared by the lanes; a single instance is a batch of
+    one).  The data are taken as given: s-block rows are not
     symmetrized.  The KKT strategy defaults to 'qr' with q or s cones and
     'chol2' otherwise (the reference conelp default)."""
     dims = ConeDims.from_dict(dims)
@@ -139,9 +190,11 @@ def make_lp_solver(dims, kktsolver=None, options=None):
             return (*(a[0] for a in out[:8]),
                     {k: v[0] for k, v in out[8].items()})
         (G, h), A, b = _cast(c, (G, h), A, b)
-        factor = kkt.make_kkt_solver(kktsolver, dims, G, A, None,
-                                     reg=o.kktreg, ozaki=o.ozaki,
-                                     facref=o.facref)
+        B = _batch_of((c, G, h, A, b), LP_RANKS, 0)
+        factor = kkt.make_kkt_solver(
+            kktsolver, dims, *_kkt_view(kktsolver, B, G, A), None,
+            reg=o.kktreg, ozaki=o.ozaki, facref=o.facref)
+        h, b = (v.expand(B, -1) for v in (h, b))
         gmv, amv, _ = _matrix_ops(G, A, None)
         return _conelp_core(c, h, b, dims, o, factor, gmv, amv)
 
@@ -187,12 +240,14 @@ def _dispatched_batch(solve, nargs_for_n, kktsolver=None):
 
 def batched_qp_solver(dims, kktsolver=None, options=None, mesh=None,
                       with_eq=False):
-    """solve(P[B], q[B], G[B], h[B][, A[B], b[B]]) -> batched state;
-    with `mesh`, dealt over its 'batch' axis (_on_mesh), else routed by
-    the KKT order of q, G and A (_dispatched_batch)."""
+    """solve(P[B], q[B], G[B], h[B][, A[B], b[B]]) -> batched state,
+    each of P, G, h, A and b batched or shared by the lanes and held
+    once (make_qp_solver); with `mesh`, dealt over its 'batch' axis
+    (_on_mesh), else routed by the KKT order of q, G and A
+    (_dispatched_batch)."""
     solve = make_qp_solver(dims, kktsolver, _vmap_facref(options), with_eq)
     run = (_dispatched_batch(solve, 1, kktsolver) if mesh is None
-           else _on_mesh(solve, mesh))
+           else _on_mesh(solve, mesh, QP_RANKS, 1))
 
     def batched(*args, **kwargs):
         with trace.root("batched_qp"):
@@ -201,13 +256,14 @@ def batched_qp_solver(dims, kktsolver=None, options=None, mesh=None,
 
 
 def batched_lp_solver(dims, kktsolver=None, options=None, mesh=None):
-    """solve(c[B], G[B], h[B][, A[B], b[B]]) -> batched conelp state;
+    """solve(c[B], G[B], h[B][, A[B], b[B]]) -> batched conelp state,
+    each of G, h, A and b batched or shared by the lanes (make_lp_solver);
     with `mesh`, dealt over its 'batch' axis (_on_mesh), else routed by
     the KKT order of c, G and A (_dispatched_batch)."""
     solve = make_lp_solver(dims, kktsolver, _vmap_facref(options))
     if mesh is None:
         return _dispatched_batch(solve, 0, kktsolver)
-    return _on_mesh(solve, mesh)
+    return _on_mesh(solve, mesh, LP_RANKS, 0)
 
 
 def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
@@ -249,7 +305,8 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
                 if isinstance(a, torch.Tensor):
                     return a[bad.to(a.device)]
                 return np.asarray(a)[bad.cpu().numpy()]
-            sout = slow(*map(lanes, (P, q, G, h, *ab)))
+            sout = slow(*(a if np.ndim(a) == r else lanes(a)
+                          for a, r in zip((P, q, G, h, *ab), QP_RANKS)))
 
             def merge(a, s):
                 a = a.clone()
@@ -290,7 +347,8 @@ def batched_qp_solver_seq(dims, kktsolver="chol2_mixed", options=None,
             B = args[1].shape[0]
             if B % group:
                 raise ValueError(f"batch {B} not divisible by group {group}")
-            outs = [solve_slice(*(a[i:i + group] for a in args))
+            outs = [solve_slice(*_lanes_of(args, QP_RANKS,
+                                           slice(i, i + group)))
                     for i in range(0, B, group)]
             return (*(torch.cat(f) for f in list(zip(*outs))[:6]),
                     type(outs[0][6])(*(torch.cat(f) for f in

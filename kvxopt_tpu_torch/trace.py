@@ -15,11 +15,13 @@ solve opens these spans:
         kkt.solve                       each solve(bx, by, bz)
         sync                            each host wait on the device
 
-and counts, per call, `ipm.steps` (interior-point steps taken) and
+and counts, per call, `ipm.steps` (interior-point steps taken),
 `h2d_bytes` (bytes the front ends copy from host memory to a CUDA
-device).  On exit from the root one `Call` record goes to a process-wide
-deque of the last MAX_CALLS calls: `calls()` returns them, `clear()`
-empties it.  A span outside any root records nothing.
+device) and, in parallel.batch's QP solve, `operand_bytes` (the bytes
+of the distinct storages its P, q, G, h, A and b occupy, a storage that
+lanes share counted once).  On exit from the root one `Call` record
+goes to a process-wide deque of the last MAX_CALLS calls: `calls()`
+returns them, `clear()` empties it.  A span outside any root records nothing.
 
 The recorder is on by default, and `enable(False)` turns it off.  Its
 clock is time.perf_counter_ns(): it creates no CUDA event and waits for
@@ -200,6 +202,21 @@ def count_h2d(t):
     h2d_bytes where it lies on a CUDA device."""
     if _tls.counters is not None and _on_card(t.device):
         count("h2d_bytes", t.numel() * t.element_size())
+
+
+def count_operands(*tensors):
+    """Count the bytes of the distinct storages that `tensors` (None
+    skipped) occupy in the open root's operand_bytes, each storage once
+    however many tensors view it.  It reads the tensors' metadata alone,
+    so it waits for nothing."""
+    if _tls.counters is None:
+        return
+    seen = {}
+    for t in tensors:
+        if t is not None:
+            st = t.untyped_storage()
+            seen[(t.device, st.data_ptr())] = st.nbytes()
+    count("operand_bytes", sum(seen.values()))
 
 
 @contextlib.contextmanager

@@ -256,6 +256,37 @@ def test_batch_drivers_with_a_mesh(world, no_mesh, driver):
     close(x, xj, 1e-6)
 
 
+@pytest.mark.parametrize("driver", ["batch_qp_shared", "batch_lp_shared"])
+def test_batch_drivers_with_shared_operands_and_a_mesh(world, driver):
+    """mesh= with G and h (and the QP's P) shared by the lanes: every
+    rank gets them whole; status and iterations are lane by lane as the
+    port's without a mesh, and every leaf within 1e-10 (the QP) or 1e-8
+    (the LP, x, s and z over tau): a shared operand's product is one
+    GEMM over the rank's lanes, whose rounding depends on how many lanes
+    it holds (the batched drivers' products are per lane, and match to
+    1e-12)."""
+    lp = driver == "batch_lp_shared"
+    with config.using_device("cpu"):
+        data = R.lp_shared(*R.LP_BATCH) if lp else R.qp_shared(*R.QP_BATCH)
+        drv = (batched_lp_solver(ConeDims(l=R.LP_BATCH[2])) if lp
+               else batched_qp_solver(ConeDims(l=R.QP_BATCH[2])))
+        port = R.numpy_of(drv(*(torch.as_tensor(a) for a in data)))
+    out = world[1][driver]
+    st, it = (7, 6) if lp else (5, 4)
+    assert (out[st] == 1).all()
+    np.testing.assert_array_equal(out[st], port[st])
+    np.testing.assert_array_equal(out[it], port[it])
+    if lp:
+        for a, b in zip(out[:4], port[:4]):
+            assert a.shape == b.shape
+            close(a / out[4][:, None], b / port[4][:, None], 1e-8)
+        return
+    flat = jax.tree_util.tree_leaves
+    for a, b in zip(flat(out), flat(port)):
+        assert a.shape == b.shape
+        close(a, b, 1e-10)
+
+
 def test_dryrun_multichip():
     """dryrun_multichip(4): __graft_entry__'s five parts on a gloo world of
     4 CPU ranks; every check inside the ranks holds."""

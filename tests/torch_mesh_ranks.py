@@ -158,6 +158,13 @@ def qp_batch(B, n, m, seed):
     return tuple(np.stack(a) for a in zip(*out))
 
 
+def qp_shared(B, n, m, seed):
+    """qp_batch's q over its lane 0's P, G and h, which every lane
+    shares (unbatched)."""
+    P, q, G, h = qp_batch(B, n, m, seed)
+    return P[0], q, G[0], h[0]
+
+
 def lp_batch(B, n, m, seed):
     """test_parallel.py:89's LP scenarios, numpy."""
     rng = np.random.default_rng(seed)
@@ -169,6 +176,12 @@ def lp_batch(B, n, m, seed):
         hs.append(np.concatenate([rng.uniform(1, 2, m - 2 * n),
                                   np.full(2 * n, 5.0)]))
     return np.stack(cs), np.stack(Gs), np.stack(hs)
+
+
+def lp_shared(B, n, m, seed):
+    """lp_batch's c over its lane 0's G and h, shared by every lane."""
+    c, G, h = lp_batch(B, n, m, seed)
+    return c, G[0], h[0]
 
 
 QP_BATCH = (8, 6, 9, 2)     # test_parallel.py:57
@@ -288,9 +301,14 @@ def work(rank, world, device):
     out["batch_qp"] = numpy_of(batched_qp_solver(dims, mesh=batch)(*qb))
     out["batch_mixed"] = numpy_of(batched_qp_solver_mixed(dims,
                                                           mesh=batch)(*qb))
+    out["batch_qp_shared"] = numpy_of(batched_qp_solver(dims, mesh=batch)(
+        *(T(a) for a in qp_shared(*QP_BATCH))))
     lb = [T(a) for a in lp_batch(*LP_BATCH)]
     out["batch_lp"] = numpy_of(batched_lp_solver(
         ConeDims(l=LP_BATCH[2]), mesh=batch)(*lb))
+    out["batch_lp_shared"] = numpy_of(batched_lp_solver(
+        ConeDims(l=LP_BATCH[2]), mesh=batch)(
+            *(T(a) for a in lp_shared(*LP_BATCH))))
     return out
 
 
