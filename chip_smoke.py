@@ -50,6 +50,13 @@ Phases (any failure exits non-zero and prints no result):
      K5, plain and torch.cholesky_solve host times, device times beside
      K5's bound, and K5's launches in one portfolio-b32 call (the
      benchmark's problem), by the ops counter and the program's record;
+  2c. K6 (the f64 Cholesky factor) against its plain version at
+     (B, n) = (32,1010), (100,1010), (1,1010) and (32,11), by backward
+     error and against cholesky_nan's factor (1e-12, its diagonal
+     positive), with K6, plain (cholesky_nan) and torch.linalg.cholesky_ex
+     host times, device times beside K6's bound, and K6's launches in
+     one portfolio-b32 call, two a factorization (K and the Schur
+     complement);
   3. batched_qp_solver_mixed on 16 random QPs (n=512, m=1024 orthant,
      f64 state, abstol/feastol 1e-7): every lane optimal, KKT residuals
      < 1e-6, K1-K3 launched during the solve;
@@ -157,7 +164,7 @@ Phases (any failure exits non-zero and prints no result):
      16 problems: every lane optimal, residuals below 1e-6, x within
      1e-6 (1 + |x|) of phase 3's, K1-K3 launched at n=512; per lane the
      iterations, K1's factorizations and those that took the fallback
-     (each lane alone, kkt.cholesky_nan's calls counted; fewer than
+     (each lane alone, kkt.chol_lower's calls counted; fewer than
      K1's); K1-K3 on the inputs the driver gives them at B=1 and B=2
      (captured by path_inputs) against their plain versions at phase
      1's tolerances, K3 in both modes; warm medians of 3
@@ -261,7 +268,8 @@ Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
 and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
 synchronizing calls per IPM iteration.  The line before the card's line
 is the kernels line: per kernel its launches on the main path (phase 7;
-K4: phase 2; K5: one portfolio-b32 call, phase 2b), in phase 14(b) (launches_phase14), in phase 16(a)'s
+K4: phase 2; K5 and K6: one portfolio-b32 call, phases 2b and 2c), in
+phase 14(b) (launches_phase14), in phase 16(a)'s
 group=1 run (launches_phase16) and in phase 17(e) (launches_phase17),
 its error against
 the plain version, its time, the plain version's and one PyTorch call's
@@ -1196,10 +1204,10 @@ def k5_work(Bn, n, k):
     return 8 * Bn * (n * (n + 1) // 2 + 2 * n * k), 2 * Bn * n * n * k
 
 
-def k5_portfolio_call(dev):
+def portfolio_call(dev, kernel):
     """One portfolio-b32 call (the benchmark's problem, seed 1, after one
-    warm call): K5's launches by the ops counter and by the program's
-    record, and the shapes it ran at."""
+    warm call): `kernel`'s launches by the ops counter and by the
+    program's record, the shapes it ran at, and the record."""
     from benchmark.problems import portfolio
     from kvxopt_tpu_torch import ConeDims, parallel, trace
     from kvxopt_tpu_torch.ops import chol_ls as cl
@@ -1218,15 +1226,18 @@ def k5_portfolio_call(dev):
     status = out[5].cpu()
     rec = trace.calls()[-1]
     shapes = {f"{kn},{n},{k}": c for (kn, n, k), c in
-              cl.LAUNCH_SHAPES.items() if kn == "K5"}
-    print(f"K5 in one portfolio-b32 call: launches {cl.LAUNCHES['K5']}, "
-          f"record k5.launches {rec.counters.get('k5.launches')}, "
-          f"ipm.steps {rec.counters.get('ipm.steps')}, shapes {shapes}, "
-          f"optimal {int((status == OPTIMAL).sum())}/32", flush=True)
-    check(cl.LAUNCHES["K5"] > 0 and
-          rec.counters.get("k5.launches") == cl.LAUNCHES["K5"],
-          "K5: the portfolio-b32 call did not go through K5")
-    return cl.LAUNCHES["K5"]
+              cl.LAUNCH_SHAPES.items() if kn == kernel}
+    counter = f"{kernel.lower()}.launches"
+    print(f"{kernel} in one portfolio-b32 call: launches "
+          f"{cl.LAUNCHES[kernel]}, record {counter} "
+          f"{rec.counters.get(counter)}, ipm.steps "
+          f"{rec.counters.get('ipm.steps')}, kkt.factor "
+          f"{rec.spans['kkt.factor'][0]}, shapes {shapes}, optimal "
+          f"{int((status == OPTIMAL).sum())}/32", flush=True)
+    check(cl.LAUNCHES[kernel] > 0 and
+          rec.counters.get(counter) == cl.LAUNCHES[kernel],
+          f"{kernel}: the portfolio-b32 call did not go through {kernel}")
+    return cl.LAUNCHES[kernel], rec
 
 
 def k5(dev):
@@ -1285,7 +1296,93 @@ def k5(dev):
               f"max|xref| {err:.2e}{dtxt}", flush=True)
         if row is None:
             row = t
-    return row, k5_portfolio_call(dev)
+    return row, portfolio_call(dev, "K5")[0]
+
+
+# K6 at the batch cells' factors: n = 1010 at B = 32 (portfolio-b32),
+# B = 100 (portfolio-frontier) and B = 1 (portfolio-single), and the
+# Schur complement's n = p = 11
+K6_TIMES = ((32, 1010), (100, 1010), (1, 1010), (32, 11))
+K6_KEYS = ("chol64_kernel", "chol64_warp_kernel")
+# cholesky_ex's kernels: cuSOLVER's potrf and its getrf at B = 1
+POTRF_KEYS = ("potrf", "getrf")
+
+
+def k6_work(Bn, n):
+    """Bytes and flops of K6 at (B, n): K read and L written once, n^2
+    doubles each a lane; n^3 / 3 flops a lane."""
+    return 16 * Bn * n * n, Bn * n ** 3 / 3
+
+
+def k6(dev):
+    """K6 against its plain version at K6_TIMES by backward error
+    (||L L' - K|| / ||K|| <= 10 n u per lane) and by its factor
+    (max|L - Lref| / max|Lref| < 1e-12, the diagonal positive), then its
+    times: host median of 20 for K6, the plain version (cholesky_nan) and
+    torch.linalg.cholesky_ex, device time per call from one profiler
+    window each (K6 warm, and cold behind a 64 MB write), beside its
+    bound; then its launches in one portfolio-b32 call, two a
+    factorization.  -> the K6 row of the kernels line (the first shape)
+    and those launches."""
+    from kvxopt_tpu_torch.ops import chol64, chol_ls as cl
+    scratch = torch.empty(16 * 2 ** 20, device=dev)
+    row = None
+    for Bn, n in K6_TIMES:
+        g = torch.Generator(device=dev).manual_seed(11)
+        G = torch.randn((Bn, 2 * n, n), generator=g, device=dev,
+                        dtype=torch.float64)
+        K = G.mT @ G + n * torch.eye(n, device=dev, dtype=torch.float64)
+        L = chol64.cholesky64(K)
+        Lr = cl.cholesky_nan(K)
+        back = float((torch.linalg.matrix_norm(L @ L.mT - K) /
+                      torch.linalg.matrix_norm(K)).max())
+        err = float((L - Lr).abs().max() / Lr.abs().max())
+        check(back <= 10 * n * 2.0 ** -52 and
+              bool((torch.triu(L, 1) == 0).all()),
+              f"K6 B={Bn} n={n}: backward error {back:.3e}")
+        # L L' alone does not fix the signs of L's columns: the factor
+        # itself is held to the plain version, its diagonal positive
+        check(err < 1e-12 and
+              bool((torch.diagonal(L, dim1=-2, dim2=-1) > 0).all()),
+              f"K6 B={Bn} n={n}: disagrees with plain ({err:.3e})")
+
+        def kern():
+            return chol64.cholesky64(K)
+
+        def plain():
+            return cl.cholesky_nan(K)
+
+        def lib():
+            return torch.linalg.cholesky_ex(K)
+
+        t = dict(err=err, ms=median_ms(kern), plain=median_ms(plain),
+                 lib=median_ms(lib))
+        warm = profile_ms(kern, keys=K6_KEYS)
+        cold = profile_ms(kern, keys=K6_KEYS, flush=scratch.zero_)
+        pl = profile_ms(plain, keys=POTRF_KEYS)
+        libd = profile_ms(lib, keys=POTRF_KEYS)
+        bd, by = bound(*k6_work(Bn, n))
+        t.update(bound=bd, bound_by=by)
+        if None not in (warm, cold, pl, libd):
+            t.update(dev=warm[1], dev_cold=cold[1], dev_plain=pl[0],
+                     dev_lib=libd[0])
+            dtxt = (f"; device: K6 {warm[1]:.4f} ms warm, {cold[1]:.4f} "
+                    f"cold ({100 * bd / cold[1]:.1f}% of the bound), plain "
+                    f"{pl[0]:.4f} (potrf {pl[1]:.4f}), cholesky_ex "
+                    f"{libd[0]:.4f} (potrf {libd[1]:.4f})")
+        else:
+            dtxt = "; device time not measured"
+        print(f"time K6 B={Bn} n={n}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, cholesky_ex {t['lib']:.4f} ms (host, "
+              f"median of 20); bound {bd:.4f} ms ({by}); backward error "
+              f"{back:.2e}; max|L-Lref|/max|Lref| {err:.2e}{dtxt}",
+              flush=True)
+        if row is None:
+            row = t
+    launches, rec = portfolio_call(dev, "K6")
+    check(launches == 2 * rec.spans["kkt.factor"][0],
+          "K6: not two launches a factorization in portfolio-b32")
+    return row, launches
 
 
 def scaling_rows(dev):
@@ -1351,7 +1448,8 @@ def kernel_bounds():
             "K2": bound(*solve_work(B, N, 1, 2)),
             "K3": bound(*solve_work(B, N, N, 1)),
             "K4": bound(*factor_work(B, N, False)),
-            "K5": bound(*k5_work(*K5_TIMES[0]))}
+            "K5": bound(*k5_work(*K5_TIMES[0])),
+            "K6": bound(*k6_work(*K6_TIMES[0]))}
 
 
 def residuals(P, q, G, h, x, s, z, A=None, b=None, y=None):
@@ -2624,19 +2722,19 @@ SEQ_CUT_S = 60.0    # a first group=1 run longer than this times lanes 0-7
 def lane_fallbacks(seq, args):
     """Per lane, (iterations, K1 factorizations, factorizations that took
     the f64 fallback): each lane solved alone through `seq`, K1's
-    launches read from its count and kkt.cholesky_nan's calls counted by
+    launches read from its count and kkt.chol_lower's calls counted by
     wrapping it (on the orthant without equality rows the mixed strategy
     reaches it only for the fallback's f64 factor)."""
     from kvxopt_tpu_torch import kkt
     from kvxopt_tpu_torch.ops import chol_ls as cl
-    plain = kkt.cholesky_nan
+    plain = kkt.chol_lower
     calls = [0]
 
     def counted(K):
         calls[0] += 1
         return plain(K)
 
-    kkt.cholesky_nan = counted
+    kkt.chol_lower = counted
     try:
         out = []
         for i in range(args[1].shape[0]):
@@ -2645,7 +2743,7 @@ def lane_fallbacks(seq, args):
             st = seq(*(a[i:i + 1] for a in args))
             out.append((int(st[4][0]), cl.LAUNCHES["K1"] - k1, calls[0]))
     finally:
-        kkt.cholesky_nan = plain
+        kkt.chol_lower = plain
     return out
 
 
@@ -4310,6 +4408,8 @@ def main():
     stamp("phase 2")
     rows["K5"], k5_launches = k5(dev)
     stamp("phase 2b")
+    rows["K6"], k6_launches = k6(dev)
+    stamp("phase 2c")
 
     gpu, _, _, walls3 = solve_phase("slice", dev, *slice_data("slice"))
     stamp("phase 3")
@@ -4360,16 +4460,19 @@ def main():
 
     launches["K4"] = k4_launches
     launches["K5"] = k5_launches
+    launches["K6"] = k6_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",
                 "K2": "kvxopt_tpu/ops/chol_ls.py:517",
                 "K3": "kvxopt_tpu/ops/chol_ls.py:592",
                 "K4": "kvxopt_tpu/ops/chol.py:139",
-                "K5": "none (the JAX package leaves f64 solves to XLA)"}
+                "K5": "none (the JAX package leaves f64 solves to XLA)",
+                "K6": "none (the JAX package leaves f64 factors to XLA)"}
     sources = {"K1": "kvxopt_tpu_torch/csrc/chol_ls.cu",
                "K2": "kvxopt_tpu_torch/csrc/chol_solve.cu",
                "K3": "kvxopt_tpu_torch/csrc/tri_solve.cu",
                "K4": "kvxopt_tpu_torch/csrc/chol.cu",
-               "K5": "kvxopt_tpu_torch/csrc/chol_solve64.cu"}
+               "K5": "kvxopt_tpu_torch/csrc/chol_solve64.cu",
+               "K6": "kvxopt_tpu_torch/csrc/chol64.cu"}
     bounds = kernel_bounds()
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],

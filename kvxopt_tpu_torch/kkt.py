@@ -30,7 +30,8 @@ import torch
 
 from . import cones, config
 from .cones import ConeDims
-from .ops.chol_ls import chol_solve_ls_ref, cholesky_nan
+from .ops.chol64 import chol_lower
+from .ops.chol_ls import chol_solve_ls_ref
 from .ops.chol_solve64 import chol_solve64, k5_fits
 from .ops.ipm_chol import chol_factor, chol_solve, tri_lower_solve
 from .ops.ozaki import OzakiOperator, ata
@@ -116,7 +117,7 @@ def _chol_spd(K, reg):
     if K.dtype == torch.float32:
         # f32 batches factor on kernel K1 (ops/ipm_chol.py): (L, Dinv)
         return chol_factor(K)
-    return cholesky_nan(K)
+    return chol_lower(K)
 
 
 # Right-hand sides up to which an f64 factor on the card is solved by
@@ -357,7 +358,7 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
 
     # the f64 factor is built only if some lane needs it; cond_any reads
     # it only then
-    L64 = cholesky_nan(k64_build()) if bool(bad.any()) else None
+    L64 = chol_lower(k64_build()) if bool(bad.any()) else None
 
     ksolve = columns(lambda b: cond_any(
         bad, lambda v: chol_solve_ls_ref(L64, None, v), solve32, b))

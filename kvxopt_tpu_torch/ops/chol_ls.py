@@ -25,10 +25,10 @@ import torch
 BS = 128
 
 # Kernel launches per wrapper, counted where the kernel is launched (K4's
-# wrapper is ops/chol.py, K5's ops/chol_solve64.py), and the same launches
-# by (kernel, n, k): n the matrix order, k the right-hand sides (0 for a
-# factor).
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+# wrapper is ops/chol.py, K5's ops/chol_solve64.py, K6's ops/chol64.py),
+# and the same launches by (kernel, n, k): n the matrix order, k the
+# right-hand sides (0 for a factor).
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 LAUNCH_SHAPES = collections.Counter()
 
 # Which of K1/K4's two launch paths runs where n > 128: None (the rule in
@@ -74,6 +74,10 @@ def _lib():
         lib.kvx_chol_solve64.argtypes = [vp, vp, vp, ci, ci, ci, ll, ll, ll,
                                          ci, ci, ci, ci, vp]
         lib.kvx_chol_solve64.restype = ci
+        lib.kvx_chol64.argtypes = [vp, vp, ci, ci, ci, vp]
+        lib.kvx_chol64.restype = ci
+        lib.kvx_chol64_clusters.argtypes = [ci]
+        lib.kvx_chol64_clusters.restype = ci
         lib._kvx_typed = True
     return lib
 
