@@ -49,14 +49,14 @@ Phases (any failure exits non-zero and prints no result):
      (32,1010,16|64|128), with
      K5, plain and torch.cholesky_solve host times, device times beside
      K5's bound, and K5's launches in one portfolio-b32 call (the
-     benchmark's problem), by the ops counter and the program's record;
+     benchmark's problem), by ops.LAUNCHES;
   2c. K6 (the f64 Cholesky factor) against its plain version at
      (B, n) = (32,1010), (100,1010), (1,1010) and (32,11), by backward
      error and against cholesky_nan's factor (1e-12, its diagonal
      positive), with K6, plain (cholesky_nan) and torch.linalg.cholesky_ex
      host times, device times beside K6's bound, and K6's launches in
-     one portfolio-b32 call, two a factorization (K and the Schur
-     complement);
+     one portfolio-b32 call by ops.LAUNCHES, two a factorization (K and
+     the Schur complement);
   3. batched_qp_solver_mixed on 16 random QPs (n=512, m=1024 orthant,
      f64 state, abstol/feastol 1e-7): every lane optimal, KKT residuals
      < 1e-6, K1-K3 launched during the solve;
@@ -164,7 +164,7 @@ Phases (any failure exits non-zero and prints no result):
      16 problems: every lane optimal, residuals below 1e-6, x within
      1e-6 (1 + |x|) of phase 3's, K1-K3 launched at n=512; per lane the
      iterations, K1's factorizations and those that took the fallback
-     (each lane alone, kkt.chol_lower's calls counted; fewer than
+     (each lane alone, kkt.chol_factor's f64 calls counted; fewer than
      K1's); K1-K3 on the inputs the driver gives them at B=1 and B=2
      (captured by path_inputs) against their plain versions at phase
      1's tolerances, K3 in both modes; warm medians of 3
@@ -836,6 +836,7 @@ def phase1_k2(dev):
     """K2 against its plain version at K2_CHECKS with every view of R
     (relative residual and difference < 1e-5, one launch per call), then
     its times beside the plain version and torch.cholesky_solve."""
+    from kvxopt_tpu_torch import ops
     from kvxopt_tpu_torch.ops import chol_ls as cl
     g = torch.Generator(device=dev).manual_seed(14)
     err = None
@@ -847,10 +848,10 @@ def phase1_k2(dev):
         xr = cl.chol_solve_ls_ref(L, Dinv, b)
         b3 = b.reshape(Bn, n, k).double()
         for view, r in rhs_views(b).items():
-            before = cl.LAUNCHES["K2"]
+            before = ops.LAUNCHES["K2"]
             x = cl.chol_solve_ls(L, Dinv, r)
             torch.cuda.synchronize()
-            check(cl.LAUNCHES["K2"] == before + 1, "K2: not one launch")
+            check(ops.LAUNCHES["K2"] == before + 1, "K2: not one launch")
             check(x.shape == r.shape and x.is_contiguous(), "K2 output")
             x3 = x.reshape(Bn, n, k).double()
             res = float(torch.linalg.norm(K.double() @ x3 - b3) /
@@ -1172,10 +1173,10 @@ def phase2(dev):
 
     K = spd_batch(B, N, 5, dev)
     torch.cuda.synchronize()
-    cl.reset_launches()
+    ops.reset_launches()
     L = ops.batched_cholesky(K)
     torch.cuda.synchronize()
-    launches = dict(cl.LAUNCHES)
+    launches = dict(ops.LAUNCHES)
     K64 = K.double()
     res = float(torch.linalg.norm(L.double() @ L.double().mT - K64) /
                 torch.linalg.norm(K64))
@@ -1188,7 +1189,7 @@ def phase2(dev):
 
 # K5 at portfolio-b32's and portfolio-single's solves: n = 1010, k = 1
 # (the Newton solves) and k = 11 (K^-1 A' with p = 11); then wider
-# right-hand sides at B = 32, on both sides of kkt.K5_MAX_K = 64, where
+# right-hand sides at B = 32, on both sides of ipm_chol.K5_MAX_K = 64, where
 # the plain version takes over
 K5_TIMES = ((32, 1010, 1), (32, 1010, 11), (1, 1010, 1), (1, 1010, 11),
             (32, 1010, 16), (32, 1010, 64), (32, 1010, 128))
@@ -1206,11 +1207,10 @@ def k5_work(Bn, n, k):
 
 def portfolio_call(dev, kernel):
     """One portfolio-b32 call (the benchmark's problem, seed 1, after one
-    warm call): `kernel`'s launches by the ops counter and by the
-    program's record, the shapes it ran at, and the record."""
+    warm call): `kernel`'s launches by ops.LAUNCHES, the shapes it ran
+    at, and the program's record."""
     from benchmark.problems import portfolio
-    from kvxopt_tpu_torch import ConeDims, parallel, trace
-    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch import ConeDims, ops, parallel, trace
     from kvxopt_tpu_torch.solvers.coneprog import OPTIMAL
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "benchmark", "configs", "portfolio.json")) as f:
@@ -1221,23 +1221,20 @@ def portfolio_call(dev, kernel):
     args = [d[key] for key in ("P", "q", "G", "h", "A", "b")]
     solve(*args)
     torch.cuda.synchronize()
-    cl.reset_launches()
+    ops.reset_launches()
     out = solve(*args)
     status = out[5].cpu()
     rec = trace.calls()[-1]
     shapes = {f"{kn},{n},{k}": c for (kn, n, k), c in
-              cl.LAUNCH_SHAPES.items() if kn == kernel}
-    counter = f"{kernel.lower()}.launches"
+              ops.LAUNCH_SHAPES.items() if kn == kernel}
     print(f"{kernel} in one portfolio-b32 call: launches "
-          f"{cl.LAUNCHES[kernel]}, record {counter} "
-          f"{rec.counters.get(counter)}, ipm.steps "
+          f"{ops.LAUNCHES[kernel]}, ipm.steps "
           f"{rec.counters.get('ipm.steps')}, kkt.factor "
           f"{rec.spans['kkt.factor'][0]}, shapes {shapes}, optimal "
           f"{int((status == OPTIMAL).sum())}/32", flush=True)
-    check(cl.LAUNCHES[kernel] > 0 and
-          rec.counters.get(counter) == cl.LAUNCHES[kernel],
+    check(ops.LAUNCHES[kernel] > 0,
           f"{kernel}: the portfolio-b32 call did not go through {kernel}")
-    return cl.LAUNCHES[kernel], rec
+    return ops.LAUNCHES[kernel], rec
 
 
 def k5(dev):
@@ -1470,19 +1467,18 @@ def residuals(P, q, G, h, x, s, z, A=None, b=None, y=None):
 def solve_phase(name, dev, dims, data):
     """The two-pass mixed driver on the card, its counts set to 0 just
     before the solve and read just after."""
-    from kvxopt_tpu_torch import cones
+    from kvxopt_tpu_torch import cones, ops
     from kvxopt_tpu_torch.convert import problem_to_torch, state_to_numpy
-    from kvxopt_tpu_torch.ops import chol_ls as cl
     from kvxopt_tpu_torch.parallel import batched_qp_solver_mixed
     eq = len(data) == 6
     solve = batched_qp_solver_mixed(dims, with_eq=eq)
     args = problem_to_torch(*data, device=dev, dtype=torch.float64)
     torch.cuda.synchronize()
-    cl.reset_launches()
+    ops.reset_launches()
     out = solve(*args)
     torch.cuda.synchronize()
-    launches = dict(cl.LAUNCHES)
-    shapes = dict(cl.LAUNCH_SHAPES)
+    launches = dict(ops.LAUNCHES)
+    shapes = dict(ops.LAUNCH_SHAPES)
     pass2 = solve.stats["pass2_lanes"]
     x, y, s, z, it, status, m = state_to_numpy(out)
     print(f"{name}: status {status.tolist()}, iterations {it.tolist()}, "
@@ -1743,21 +1739,20 @@ def lp_batch(dev):
     y and z over tau, G'z + c and Gx + s - h below 1e-6 relative; s and z
     in the cone; 3 warm wall times and the device's busy share over one
     solve."""
-    from kvxopt_tpu_torch import ConeDims, cones
+    from kvxopt_tpu_torch import ConeDims, cones, ops
     from kvxopt_tpu_torch.convert import lp_state_to_numpy
-    from kvxopt_tpu_torch.ops import chol_ls as cl
     from kvxopt_tpu_torch.parallel import batched_lp_solver
     name = "lp batch"
     dims = ConeDims(l=2 * K_GRID)
     c, G, h = grid_scenarios()
     solve = batched_lp_solver(dims, options=LP_OPTIONS)
     torch.cuda.synchronize()
-    cl.reset_launches()
+    ops.reset_launches()
     t0 = time.perf_counter()
     out = solve(c, G, h)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    launches = dict(cl.LAUNCHES)
+    launches = dict(ops.LAUNCHES)
     on_card(name, *out[:8], *out[8].values())
     check(out[0].device.index == dev.index, f"{name}: not on {dev}")
     x, y, s, z, tau, kappa, it, status, m = lp_state_to_numpy(out)
@@ -1833,17 +1828,16 @@ def front_ends(dev):
     kernel counts set to 0 before each call and read after; every result
     has the JAX function's key set and its tensors on the card, and each
     call's warm median of 3 is printed."""
-    from kvxopt_tpu_torch import ConeDims, cones, solvers
+    from kvxopt_tpu_torch import ConeDims, cones, ops, solvers
     from kvxopt_tpu_torch.convert import problem_to_torch
-    from kvxopt_tpu_torch.ops import chol_ls as cl
     from kvxopt_tpu_torch.parallel import batched_qp_solver
 
     def run(name, fn, keys, status="optimal"):
         torch.cuda.synchronize()
-        cl.reset_launches()
+        ops.reset_launches()
         sol = fn()
         torch.cuda.synchronize()
-        launches = dict(cl.LAUNCHES)
+        launches = dict(ops.LAUNCHES)
         check(set(sol) == keys, f"front ends {name}: keys {sorted(sol)}")
         on_card(f"front ends {name}", *(sol[k] for k in "xysz"))
         ts = warm_times(fn)
@@ -1933,8 +1927,7 @@ def nonlinear(dev):
     of 3, iterations, host syncs per iteration and the device's busy
     share over one profiled call.  Returns name -> (x, iterations,
     status, primal objective) for the CPU comparison."""
-    from kvxopt_tpu_torch import ConeDims, cones
-    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch import ConeDims, cones, ops
     from kvxopt_tpu_torch.solvers.cvxprog import oracle_from_function
     calls = nonlinear_calls(dev)
     out = {}
@@ -1944,10 +1937,10 @@ def nonlinear(dev):
 
     for name, fn in calls.items():
         torch.cuda.synchronize()
-        cl.reset_launches()
+        ops.reset_launches()
         sol = fn()
         torch.cuda.synchronize()
-        launches = dict(cl.LAUNCHES)
+        launches = dict(ops.LAUNCHES)
         on_card(f"nonlinear {name}", *(sol[k] for k in
                                        ("x", "y", "snl", "sl", "znl", "zl")))
         ts = warm_times(fn)
@@ -2167,6 +2160,7 @@ def scenario_routes(S, shift, dev):
     and solves are then held against their plain versions on the same
     inputs (K1 as in phase 1; K2 to 1e-5 relative)."""
     import scipy.sparse as sp
+    from kvxopt_tpu_torch import ops
     from kvxopt_tpu_torch.ops import best_chol_factor_solve, chol_ls as cl
     from kvxopt_tpu_torch.ops.tile_chol import (TileCholesky,
                                                 tile_pattern_from_sparse)
@@ -2195,10 +2189,10 @@ def scenario_routes(S, shift, dev):
     rt = max(rel_res(Ks[:, :n, :n], y, bs[:, :n]),
              rel_res(Ks[:, :n, :n], x, y))
     torch.cuda.synchronize()
-    cl.reset_launches()
+    ops.reset_launches()
     f, y, x = dense_route()
     torch.cuda.synchronize()
-    launches = dict(cl.LAUNCHES)
+    launches = dict(ops.LAUNCHES)
     check(launches["K1"] >= 1 and launches["K2"] >= 2,
           "sparse scenarios: K1 or K2 did not run on the dense route")
     L, Dinv = f
@@ -2491,8 +2485,7 @@ def modeling(dev):
     DSDP bridge on the userguide SDP.  Returns the card's results for
     modeling_compare."""
     from kvxopt_tpu_torch import dsdp, osqp, solvers
-    from kvxopt_tpu_torch import modeling as md
-    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch import modeling as md, ops
 
     def host(t):
         return t.detach().cpu().numpy()
@@ -2500,10 +2493,10 @@ def modeling(dev):
     gpu = {}
     for name, (prob, xs) in pwl_models().items():
         torch.cuda.synchronize()
-        cl.reset_launches()
+        ops.reset_launches()
         sol = solve_recorded(prob)
         torch.cuda.synchronize()
-        launches = dict(cl.LAUNCHES)
+        launches = dict(ops.LAUNCHES)
         on_card(f"modeling {name}", *(sol[k] for k in "xysz"))
         check(sol["status"] == prob.status == "optimal",
               f"modeling {name}: status {prob.status}")
@@ -2575,13 +2568,13 @@ def modeling(dev):
 
     def qp_osqp(options=None):
         return solvers.qp(P, q, G, h, A, b, solver="osqp", options=options)
-    cl.reset_launches()
+    ops.reset_launches()
     with spy(osqp, "_admm_core") as seen:
         sol = qp_osqp()
     torch.cuda.synchronize()
     it = int(seen[0][3])
     check(seen[0][0].device.type == "cuda", "modeling osqp: not on the card")
-    check(not any(cl.LAUNCHES[k] for k in F32_KERNELS),
+    check(not any(ops.LAUNCHES[k] for k in F32_KERNELS),
           "modeling osqp: a kernel of K1-K4 ran")
     ts = warm_times(qp_osqp)
     syncs = count_syncs(qp_osqp)
@@ -2722,28 +2715,28 @@ SEQ_CUT_S = 60.0    # a first group=1 run longer than this times lanes 0-7
 def lane_fallbacks(seq, args):
     """Per lane, (iterations, K1 factorizations, factorizations that took
     the f64 fallback): each lane solved alone through `seq`, K1's
-    launches read from its count and kkt.chol_lower's calls counted by
-    wrapping it (on the orthant without equality rows the mixed strategy
-    reaches it only for the fallback's f64 factor)."""
-    from kvxopt_tpu_torch import kkt
-    from kvxopt_tpu_torch.ops import chol_ls as cl
-    plain = kkt.chol_lower
+    launches read from its count and the route's f64 factors counted by
+    wrapping kkt.chol_factor, which K1's factors pass too (on the orthant
+    without equality rows the mixed strategy factors in f64 only for the
+    fallback)."""
+    from kvxopt_tpu_torch import kkt, ops
+    plain = kkt.chol_factor
     calls = [0]
 
     def counted(K):
-        calls[0] += 1
+        calls[0] += K.dtype == torch.float64
         return plain(K)
 
-    kkt.chol_lower = counted
+    kkt.chol_factor = counted
     try:
         out = []
         for i in range(args[1].shape[0]):
             calls[0] = 0
-            k1 = cl.LAUNCHES["K1"]
+            k1 = ops.LAUNCHES["K1"]
             st = seq(*(a[i:i + 1] for a in args))
-            out.append((int(st[4][0]), cl.LAUNCHES["K1"] - k1, calls[0]))
+            out.append((int(st[4][0]), ops.LAUNCHES["K1"] - k1, calls[0]))
     finally:
-        kkt.chol_lower = plain
+        kkt.chol_factor = plain
     return out
 
 
@@ -2855,19 +2848,19 @@ def seq_driver(dev, x3, walls3):
     """Phase 16(a): batched_qp_solver_seq (chol2_mixed, group=1, then
     group=2) on phase 3's 16 problems.  Returns the group=1 run's kernel
     launches, its counts set to 0 just before it and read just after."""
+    from kvxopt_tpu_torch import ops
     from kvxopt_tpu_torch.convert import problem_to_torch
-    from kvxopt_tpu_torch.ops import chol_ls as cl
     from kvxopt_tpu_torch.parallel import batched_qp_solver_seq
     dims, data = slice_data("slice")
     args = problem_to_torch(*data, device=dev, dtype=torch.float64)
     seq1 = batched_qp_solver_seq(dims)
     torch.cuda.synchronize()
-    cl.reset_launches()
+    ops.reset_launches()
     t0 = time.perf_counter()
     out = seq1(*args)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
-    launches, shapes = dict(cl.LAUNCHES), dict(cl.LAUNCH_SHAPES)
+    launches, shapes = dict(ops.LAUNCHES), dict(ops.LAUNCH_SHAPES)
     print(f"seq group=1 first run on {B} lanes: {first:.4f} s")
     print(f"seq group=1 launches during the solve: {launches}")
     print(f"seq group=1 launches by (kernel, n, k): {sorted(shapes.items())}")
@@ -3212,9 +3205,8 @@ def phase17_rank(rank, world, dev):
     solving its slice of the batch, K1-K3's counts set to 0 just before
     and read just after.  Returns rank 0's results and walls (numpy and
     numbers)."""
-    from kvxopt_tpu_torch import ConeDims, config, solvers
+    from kvxopt_tpu_torch import ConeDims, config, ops, solvers
     from kvxopt_tpu_torch.convert import problem_to_torch, state_to_numpy
-    from kvxopt_tpu_torch.ops import chol_ls as cl
     from kvxopt_tpu_torch.parallel import (
         arrow_kkt_factor, batched_qp_solver_mixed, cyclic_unpack,
         dist_cholesky, make_mesh, sharded_kkt_solver)
@@ -3256,10 +3248,10 @@ def phase17_rank(rank, world, dev):
     args = problem_to_torch(*data, device=dev)
     solve = batched_qp_solver_mixed(dims, mesh=make_mesh(world))
     torch.cuda.synchronize()
-    cl.reset_launches()
+    ops.reset_launches()
     res = timed(walls, "(e) batched_qp_solver_mixed(mesh=)",
                 lambda: solve(*args))
-    out["launches"] = dict(cl.LAUNCHES)
+    out["launches"] = dict(ops.LAUNCHES)
     x, _, _, _, it, status, _ = state_to_numpy(res)
     out["mixed"] = (x, it, status)
     out["walls"] = walls
@@ -3787,14 +3779,13 @@ def examples(dev):
     mcsdp at MCSDP_SMALL on the CPU; (c) weak_scaling_sharded at world 1
     over NCCL.  Thresholds 0 again at the end.  Returns name -> (rows,
     card ms) for examples_compare."""
-    from kvxopt_tpu_torch import config
+    from kvxopt_tpu_torch import config, ops
     from kvxopt_tpu_torch.examples import mcsdp, weak_scaling_sharded as ws
-    from kvxopt_tpu_torch.ops import chol_ls as cl
     set_thresholds(0, 0)
     calls = example_calls()
     gpu = {}
     torch.cuda.synchronize()
-    cl.reset_launches()
+    ops.reset_launches()
     for name, fn in calls.items():
         res = {}
 
@@ -3833,7 +3824,7 @@ def examples(dev):
               f"card warm median {ms:.2f} ms (first call {1e3 * first:.2f} "
               f"ms), {seen}", flush=True)
         gpu[name] = (rows, ms)
-    launches = dict(cl.LAUNCHES)
+    launches = dict(ops.LAUNCHES)
     print(f"examples (a) K1-K4 launches over every call: {launches} (the "
           "examples solve in f64; K1-K4 fire only in chol2_mixed(_nofb) "
           "and ops.batched_cholesky)", flush=True)
@@ -4197,8 +4188,7 @@ for value, want in (("0", "cuda"), (sys.argv[1], "cpu")):
 
 def dispatch_routes(dev):
     """Phase 18(d): the routing checks, both thresholds ROUTE_T."""
-    from kvxopt_tpu_torch import ConeDims, solvers
-    from kvxopt_tpu_torch.ops import chol_ls as cl
+    from kvxopt_tpu_torch import ConeDims, ops, solvers
     from kvxopt_tpu_torch.parallel import batched_lp_solver, batched_qp_solver
     lp, socp, sdp = userguide_data()[:3]
     P, q, G, h = large_problem(0)
@@ -4254,10 +4244,10 @@ def dispatch_routes(dev):
             ("chol2", "f32 CUDA tensors",
              [torch.from_numpy(a).to(dev, torch.float32) for a in qp])):
         torch.cuda.synchronize()
-        cl.reset_launches()
+        ops.reset_launches()
         out = batched_qp_solver(ConeDims(l=2 * n), strategy)(*args)
         torch.cuda.synchronize()
-        launches = dict(cl.LAUNCHES)
+        launches = dict(ops.LAUNCHES)
         print(f"dispatch (d) batched qp {strategy}, {label}, B={B} n={n}: "
               f"results on {out[0].device.type}, launches {launches}",
               flush=True)

@@ -30,9 +30,7 @@ import torch
 
 from . import cones, config
 from .cones import ConeDims
-from .ops.chol64 import chol_lower
 from .ops.chol_ls import chol_solve_ls_ref
-from .ops.chol_solve64 import chol_solve64, k5_fits
 from .ops.ipm_chol import chol_factor, chol_solve, tri_lower_solve
 from .ops.ozaki import OzakiOperator, ata
 
@@ -114,41 +112,12 @@ def _keff(P, H, G):
 def _chol_spd(K, reg):
     if reg:
         K = K + reg * _eye_like(K)
-    if K.dtype == torch.float32:
-        # f32 batches factor on kernel K1 (ops/ipm_chol.py): (L, Dinv)
-        return chol_factor(K)
-    return chol_lower(K)
-
-
-# Right-hand sides up to which an f64 factor on the card is solved by
-# kernel K5, which reads L once per 8 columns; a wider solve keeps the two
-# triangular solves of the plain version.  The crossover, on an H100 at
-# B = 32 and n = 1010: K5 1.18 ms against 1.79 at k = 64, 2.30 against
-# 1.95 at k = 128 (at B = 1 K5 is faster at both).
-K5_MAX_K = 64
-
-
-def k5_route(device, dtype, n, k):
-    """Whether the Cholesky solve of a factor (not K1's (L, Dinv) pair) of
-    order n with k right-hand sides goes to K5: a float64 factor on a CUDA
-    device, k <= K5_MAX_K and an n that K5's shared memory holds; else
-    the two solve_triangular calls of the plain version."""
-    return (device.type == "cuda" and dtype == torch.float64
-            and k <= K5_MAX_K and k5_fits(n))
-
-
-def _chol_solve(L, b):
-    if isinstance(L, tuple):
-        return chol_solve(L[0], L[1], b)
-    k = 1 if b.ndim == L.ndim - 1 else b.shape[-1]
-    if k5_route(L.device, L.dtype, L.shape[-1], k):
-        return chol_solve64(L, b)
-    return chol_solve_ls_ref(L, None, b)
+    return chol_factor(K)
 
 
 def _spd_chol(K, reg):
-    L = _chol_spd(K, reg)
-    return lambda b: _chol_solve(L, b)
+    L, Dinv = _chol_spd(K, reg)
+    return lambda b: chol_solve(L, Dinv, b)
 
 
 def _empty_y(bx):
@@ -245,11 +214,11 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
     dsc32 = 1.0 / torch.sqrt(torch.clamp(
         torch.diagonal(K32, dim1=-2, dim2=-1), min=1e-30))
     Keq32 = K32 * dsc32[:, :, None] * dsc32[:, None, :]
-    L32 = _chol_spd(Keq32, 0.0)
+    L32, Di32 = _chol_spd(Keq32, 0.0)
     dsc = dsc32.to(dtype)
     dsc3 = dsc[:, :, None]
 
-    D32 = L0m = None
+    D32 = None
     if keq64_build is not None:
         # One-shot factor refinement: with E = Keq - L0 L0' to ~1e-12
         # (exact-split Gram), D = L0 Phi(L0^{-1} E L0^{-T}) (Phi = strict
@@ -258,25 +227,24 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
         #   (MM')^{-1} r ~ u - S0(D L0' u + L0 D' u),  u = S0 r.
         # The two n-RHS triangular solves run on kernel K3.
         Keq64 = keq64_build(dsc)
-        L0m = L32[0]
-        L0_64 = L0m.to(dtype)
+        L0_64 = L32.to(dtype)
         E32 = (Keq64 - ata(L0_64.transpose(-1, -2))).to(K32.dtype)
-        F1 = tri_lower_solve(L0m, L32[1], E32)
-        F = tri_lower_solve(L0m, L32[1],
+        F1 = tri_lower_solve(L32, Di32, E32)
+        F = tri_lower_solve(L32, Di32,
                             F1.transpose(-1, -2)).transpose(-1, -2)
         Phi = torch.tril(F, -1) + 0.5 * torch.diag_embed(
             torch.diagonal(F, dim1=-2, dim2=-1))
-        D32 = L0m @ Phi
+        D32 = L32 @ Phi
 
     def m_apply(R):
         # approximate K^{-1} R through the equilibrated f32 factor
         R32 = (dsc3 * R).to(K32.dtype)
         if D32 is None:
-            return dsc3 * _chol_solve(L32, R32).to(dtype)
-        U = _chol_solve(L32, R32)
-        Wd = D32 @ (L0m.transpose(-1, -2) @ U) + L0m @ (
+            return dsc3 * chol_solve(L32, Di32, R32).to(dtype)
+        U = chol_solve(L32, Di32, R32)
+        Wd = D32 @ (L32.transpose(-1, -2) @ U) + L32 @ (
             D32.transpose(-1, -2) @ U)
-        Z = U - _chol_solve(L32, Wd)
+        Z = U - chol_solve(L32, Di32, Wd)
         return dsc3 * Z.to(dtype)
 
     def norm(V):
@@ -358,7 +326,7 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
 
     # the f64 factor is built only if some lane needs it; cond_any reads
     # it only then
-    L64 = chol_lower(k64_build()) if bool(bad.any()) else None
+    L64 = chol_factor(k64_build())[0] if bool(bad.any()) else None
 
     ksolve = columns(lambda b: cond_any(
         bad, lambda v: chol_solve_ls_ref(L64, None, v), solve32, b))

@@ -1,13 +1,19 @@
-"""Compute kernels for the hot path: batched block Cholesky with
+"""Compute kernels for the hot path, hand-written CUDA for Hopper with a
+plain PyTorch version beside each: batched block Cholesky with
 diagonal-block inverses (K1) and the triangular solves against it (K2,
-K3), and the L-only batched Cholesky (K4); hand-written CUDA for Hopper
-with a plain PyTorch version beside each (ops/chol_ls.py, ops/chol.py)."""
+K3) in ops/chol_ls.py, the L-only batched Cholesky (K4) in ops/chol.py,
+the f64 Cholesky solve (K5) in ops/chol_solve64.py and the f64 Cholesky
+factor (K6) in ops/chol64.py.  ops/ipm_chol.py routes the KKT
+strategies' factors and solves to them; ops/_build.py builds and loads
+the library and counts every launch (LAUNCHES per kernel, LAUNCH_SHAPES
+per (kernel, n, k), reset_launches() zeroes both)."""
 
 import torch
 
+from ._build import LAUNCH_SHAPES, LAUNCHES, reset_launches  # noqa: F401
 from .chol import batched_cholesky, cholesky_kernel_available  # noqa: F401
-from .chol_ls import (LAUNCHES, batched_cholesky_ls,  # noqa: F401
-                      chol_solve_ls, cholesky_ls_available, tri_solve_ls)
+from .chol_ls import (batched_cholesky_ls, chol_solve_ls,  # noqa: F401
+                      cholesky_ls_available, tri_solve_ls)
 
 
 def _use_ls(A):

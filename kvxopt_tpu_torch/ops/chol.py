@@ -16,9 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from .chol_ls import (BS, _check_square, _factor_path, _lib, _on_cpu,
-                      _pad_identity, _raise_on, _stream, cholesky_nan,
-                      count_launch)
+from ._build import _lib, _on_cpu, _raise_on, _stream, count_launch
+from .chol_ls import (BS, _check_square, _factor_path, _pad_identity,
+                      cholesky_nan)
 
 
 def cholesky_kernel_available():

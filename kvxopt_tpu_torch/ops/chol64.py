@@ -3,11 +3,10 @@ version is chol_ls.cholesky_nan, torch.linalg.cholesky_ex with a NaN lane
 where a pivot fails.
 
 K6 (csrc/chol64.cu, built by ops/_build.py) replaces no Pallas kernel: the
-JAX package leaves its f64 factors to XLA.  chol_lower routes kkt's f64
-factors: K6 takes them on the card from cuSOLVER's batched potrf
-and the passes around it, except a single factor past K6_ALONE_MAX_N,
-which cuSOLVER's unbatched potrf makes faster; the kernel's source note
-says what bounds it and what its design does about that.
+JAX package leaves its f64 factors to XLA.  It takes kkt's f64 factors on
+the card (ops/ipm_chol.py routes them) from cuSOLVER's batched potrf and
+the passes around it; the kernel's source note says what bounds it and
+what its design does about that.
 
 The contract, cholesky_nan's: K (..., n, n) float64 symmetric, its lower
 triangle read in place; returns a fresh lower factor (row-major, the
@@ -22,9 +21,8 @@ import functools
 
 import torch
 
-from .. import trace
-from .chol_ls import (_lib, _on_cpu, _raise_on, _stream, cholesky_nan,
-                      count_launch)
+from ._build import _lib, _on_cpu, _raise_on, _stream, count_launch
+from .chol_ls import cholesky_nan
 
 # The kernel's tile order, and the largest n it takes: it indexes a lane
 # with 32-bit offsets, so n * n < 2**31.
@@ -55,37 +53,6 @@ def k6_plan(B, n, resident):
 def k6_fits(n):
     """Whether K6 takes factors of order n."""
     return n <= K6_MAX_N
-
-
-# The largest order that K6 takes alone (B = 1).  A single factor is one
-# lane's chain of diagonal tiles for K6, while cuSOLVER's unbatched potrf
-# spreads it over the whole card.  On an H100 (K6 / cholesky_nan, ms, by
-# CUDA events; host wall with a sync in brackets) K6 is ahead by both
-# measures up to n = 128 (0.052 / 0.077; 0.074 / 0.085), level at 192
-# and 256 (0.115 / 0.119; 0.166 / 0.156) and behind from 384 on (1010:
-# 0.87 / 0.49).  From B = 2 on cuSOLVER takes its batched potrf and K6 is
-# ahead at every n measured (11 to 4000; 1010: 0.90 / 1.50).
-K6_ALONE_MAX_N = 128
-
-
-def k6_route(device, dtype, B, n):
-    """Whether B float64 factors of order n go to kernel K6: on a CUDA
-    device, with an n that K6 takes, and with B >= 2 or n <= K6_ALONE_MAX_N;
-    else the plain version, cholesky_nan."""
-    return (device.type == "cuda" and dtype == torch.float64 and k6_fits(n)
-            and (B >= 2 or n <= K6_ALONE_MAX_N))
-
-
-def chol_lower(K):
-    """Lower Cholesky factors of K (..., n, n), NaN in a lane that is not
-    positive definite: kernel K6 where k6_route takes K's shape, else
-    cholesky_nan.  The route of kkt's factors L L' = K: _chol_spd's f64
-    factors and the mixed driver's f64 fallback."""
-    n = K.shape[-1]
-    B = K.numel() // (n * n) if n else 0
-    if k6_route(K.device, K.dtype, B, n):
-        return cholesky64(K)
-    return cholesky_nan(K)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,5 +91,4 @@ def cholesky64(K):
                                _stream())
         _raise_on(rc, "cholesky64")
         count_launch("K6", n)
-        trace.count("k6.launches")
     return L.reshape(K.shape)

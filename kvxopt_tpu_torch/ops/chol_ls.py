@@ -16,20 +16,11 @@ raises.
 
 from __future__ import annotations
 
-import collections
-import ctypes
-import functools
-
 import torch
 
-BS = 128
+from ._build import _lib, _on_cpu, _raise_on, _sm_count, _stream, count_launch
 
-# Kernel launches per wrapper, counted where the kernel is launched (K4's
-# wrapper is ops/chol.py, K5's ops/chol_solve64.py, K6's ops/chol64.py),
-# and the same launches by (kernel, n, k): n the matrix order, k the
-# right-hand sides (0 for a factor).
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
-LAUNCH_SHAPES = collections.Counter()
+BS = 128
 
 # Which of K1/K4's two launch paths runs where n > 128: None (the rule in
 # _factor_path), or 0 (one cluster launch) / 1 (one launch per panel
@@ -45,55 +36,9 @@ _FACTOR_PATH = None
 _K2_SMEM_BYTES = 227 * 1024
 
 
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    LAUNCH_SHAPES.clear()
-
-
-def count_launch(kernel, n, k=0):
-    LAUNCHES[kernel] += 1
-    LAUNCH_SHAPES[(kernel, n, k)] += 1
-
-
-def _lib():
-    from ._build import load_library
-    lib = load_library()
-    if not getattr(lib, "_kvx_typed", False):
-        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.kvx_chol_ls.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-        lib.kvx_chol_ls.restype = ci
-        lib.kvx_chol.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-        lib.kvx_chol.restype = ci
-        lib.kvx_chol_solve.argtypes = [vp, vp, vp, vp, ci, ci, ci, ll, ll,
-                                       ci, vp]
-        lib.kvx_chol_solve.restype = ci
-        lib.kvx_tri.argtypes = [vp, vp, vp, vp, ci, ci, ci, ll, ll, ci, ci,
-                                vp]
-        lib.kvx_tri.restype = ci
-        lib.kvx_chol_solve64.argtypes = [vp, vp, vp, ci, ci, ci, ll, ll, ll,
-                                         ci, ci, ci, ci, vp]
-        lib.kvx_chol_solve64.restype = ci
-        lib.kvx_chol64.argtypes = [vp, vp, ci, ci, ci, vp]
-        lib.kvx_chol64.restype = ci
-        lib.kvx_chol64_clusters.argtypes = [ci]
-        lib.kvx_chol64_clusters.restype = ci
-        lib._kvx_typed = True
-    return lib
-
-
 def cholesky_ls_available():
     """True where kernels K1-K3 can run: a CUDA device is present."""
     return torch.cuda.is_available()
-
-
-def _on_cpu(*ts):
-    devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
-        return True
-    if devs == {"cuda"}:
-        return False
-    raise ValueError(f"tensors on unsupported or mixed devices: {devs}")
 
 
 def _check(t, name, ndim):
@@ -103,15 +48,6 @@ def _check(t, name, ndim):
         raise ValueError(f"{name}: expected {ndim} dims, got {t.ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: kernel takes a contiguous tensor")
-
-
-def _raise_on(rc, what):
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
-
-
-def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 def _pad_identity(A, npad):
@@ -270,11 +206,6 @@ def chol_solve_ls(L, Dinv, rhs):
     _raise_on(rc, "chol_solve_ls")
     count_launch("K2", n, k)
     return X[:, :, 0] if vec else X
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _tri_kc(B, k, device):

@@ -3,9 +3,9 @@ version is chol_ls.chol_solve_ls_ref, two triangular solves.
 
 K5 (csrc/chol_solve64.cu, built by ops/_build.py) replaces no Pallas
 kernel: the JAX package leaves its f64 solves to XLA.  It takes the f64
-solves of the KKT strategies (kkt._chol_solve) from cuBLAS's batched
-trsm, which ran them at ~20 times the time of their bytes; its source
-note says what bounds it and what its design does about that.
+solves of the KKT strategies (ops/ipm_chol.py routes them) from cuBLAS's
+batched trsm, which ran them at ~20 times the time of their bytes; its
+source note says what bounds it and what its design does about that.
 
 The contract: L (B, n, n) float64 lower factors, each matrix row-major or
 column-major (torch.linalg.cholesky's on the card) with the batch
@@ -22,9 +22,9 @@ import functools
 
 import torch
 
-from .. import trace
-from .chol_ls import (_as3, _lib, _on_cpu, _raise_on, _sm_count, _stream,
-                      chol_solve_ls_ref, count_launch)
+from ._build import (_lib, _on_cpu, _raise_on, _sm_count, _stream,
+                     count_launch)
+from .chol_ls import _as3, chol_solve_ls_ref
 
 # Rows of a diagonal block, warps of a CTA, doubles per row of a ring
 # stage, and a CTA's shared memory on sm_90: the kernel's constants
@@ -118,5 +118,4 @@ def chol_solve64(L, rhs):
                                      int(cm), kb, C, S, _stream())
         _raise_on(rc, "chol_solve64")
         count_launch("K5", n, k)
-        trace.count("k5.launches")
     return X[:, :, 0] if vec else X

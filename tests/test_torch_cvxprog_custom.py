@@ -236,18 +236,20 @@ def test_ldl_fallback_after_a_failed_factor(on_the_cpu, monkeypatch):
     G, h, A, b = maxent_data()
     plain = tsolvers.cp(maxent(torch), G, h, A=A, b=b)
     calls = {"chol": 0, "ldl": 0}
-    chol, ldl = kkt.chol_lower, kkt.ldl_nopiv
+    chol, ldl = kkt.chol_factor, kkt.ldl_nopiv
 
     def failing_once(K):
         calls["chol"] += 1
-        L = chol(K)
-        return torch.full_like(L, float("nan")) if calls["chol"] == 1 else L
+        L, Dinv = chol(K)
+        if calls["chol"] == 1:
+            L = torch.full_like(L, float("nan"))
+        return L, Dinv
 
     def counted_ldl(M, *args, **kw):
         calls["ldl"] += 1
         return ldl(M, *args, **kw)
 
-    monkeypatch.setattr(kkt, "chol_lower", failing_once)
+    monkeypatch.setattr(kkt, "chol_factor", failing_once)
     monkeypatch.setattr(kkt, "ldl_nopiv", counted_ldl)
     sol = tsolvers.cp(maxent(torch), G, h, A=A, b=b)
     assert calls["ldl"] == 1 and calls["chol"] > 1

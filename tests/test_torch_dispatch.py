@@ -385,6 +385,7 @@ def test_kernels_at_every_n(monkeypatch, n):
     rhs = torch.randn((2, n, 3), generator=g, dtype=torch.float64)
     for dt in (torch.float64, torch.float32):
         L, Dinv = ipm_chol.chol_factor(K.to(dt))
+        assert (Dinv is None) == (dt == torch.float64)
         x = ipm_chol.chol_solve(L, Dinv, rhs.to(dt))
         ipm_chol.tri_lower_solve(L, Dinv, rhs.to(dt))
         assert torch.allclose(K.to(dt) @ x, rhs.to(dt), rtol=0,

@@ -1,5 +1,5 @@
 """Kernel K6 of kvxopt_tpu_torch.ops.chol64, the f64 batched Cholesky factor
-that kkt._chol_spd sends every f64 factor on the card to.
+that ops.ipm_chol.chol_factor routes kkt's f64 factors on the card to.
 
 On the CPU the wrapper runs its plain version, chol_ls.cholesky_nan, and
 the tests here check the launch plan and the route, which are plain
@@ -16,9 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from kvxopt_tpu_torch import kkt, trace
+from kvxopt_tpu_torch import kkt, ops, trace
 from kvxopt_tpu_torch.ops import chol64 as k6
 from kvxopt_tpu_torch.ops import chol_ls as cl
+from kvxopt_tpu_torch.ops import ipm_chol
 
 # clusters of 1..8 CTAs of K6 that one H100 SXM holds at once
 # (cudaOccupancyMaxActiveClusters at K6's shared memory)
@@ -69,8 +70,8 @@ def test_k6_plan_refuses_past_its_order():
     ("cuda", torch.float64, 2, 1010, True),
     ("cuda", torch.float64, 32, 11, True),
     ("cuda", torch.float64, 1, 11, True),
-    ("cuda", torch.float64, 1, k6.K6_ALONE_MAX_N, True),
-    ("cuda", torch.float64, 1, k6.K6_ALONE_MAX_N + 1, False),
+    ("cuda", torch.float64, 1, ipm_chol.K6_ALONE_MAX_N, True),
+    ("cuda", torch.float64, 1, ipm_chol.K6_ALONE_MAX_N + 1, False),
     ("cuda", torch.float64, 1, 1010, False),
     ("cuda", torch.float64, 2, k6.K6_MAX_N, True),
     ("cuda", torch.float64, 2, k6.K6_MAX_N + 1, False),
@@ -79,9 +80,9 @@ def test_k6_plan_refuses_past_its_order():
     ("cpu", torch.float32, 1, 11, False),
 ])
 def test_k6_route(dev, dtype, B, n, route):
-    """chol_lower's rule: the device, the dtype, whether K6 takes the
+    """The f64 factor's rule: the device, the dtype, whether K6 takes the
     order n, and a single factor past K6_ALONE_MAX_N left to cuSOLVER."""
-    assert k6.k6_route(torch.device(dev), dtype, B, n) is route
+    assert ipm_chol.k6_route(torch.device(dev), dtype, B, n) is route
 
 
 def test_k6_cpu_wrapper_never_consults_cuda(monkeypatch):
@@ -93,11 +94,11 @@ def test_k6_cpu_wrapper_never_consults_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
     monkeypatch.setattr(k6, "_lib", forbidden)
     monkeypatch.setattr(k6, "resident", forbidden)
-    before = dict(cl.LAUNCHES)
+    before = dict(ops.LAUNCHES)
     k6.cholesky64(spd64(2, 70))
-    k6.chol_lower(spd64(2, 70))
+    ipm_chol.chol_factor(spd64(2, 70))
     kkt._chol_spd(spd64(2, 70), 0.0)
-    assert cl.LAUNCHES == before
+    assert ops.LAUNCHES == before
     with pytest.raises(ValueError, match="unsupported or mixed devices"):
         k6.cholesky64(torch.empty((2, 40, 40), dtype=torch.float64,
                                   device="meta"))
@@ -107,11 +108,13 @@ def test_k6_cpu_wrapper_never_consults_cuda(monkeypatch):
 @pytest.mark.parametrize("bad", [None, (1, 0), (2, 39)])
 def test_chol_spd_on_cpu_is_cholesky_nan(reg, bad):
     """On the CPU kkt._chol_spd still returns cholesky_nan's factor, bit
-    for bit, NaN lanes included (a pivot that fails first or last)."""
+    for bit, NaN lanes included (a pivot that fails first or last), and
+    no block inverses."""
     K = spd64(3, 40)
     if bad is not None:
         K[bad[0], bad[1], bad[1]] = -1e6
-    L = kkt._chol_spd(K, reg)
+    L, Dinv = kkt._chol_spd(K, reg)
+    assert Dinv is None
     Lr = cl.cholesky_nan(K + reg * torch.eye(40, dtype=K.dtype) if reg
                          else K)
     torch.testing.assert_close(L, Lr, rtol=0, atol=0, equal_nan=True)
@@ -122,15 +125,17 @@ def test_chol_spd_on_cpu_is_cholesky_nan(reg, bad):
 @pytest.mark.parametrize("shape", [(3, 40, 40), (2, 3, 17, 17), (1, 200, 200),
                                    (0, 5, 5)])
 def test_chol_lower_on_cpu_is_cholesky_nan(shape):
-    """On the CPU the route is the plain version, bit for bit, in any
-    batch shape."""
+    """On the CPU the f64 factor's route is the plain version, bit for
+    bit, in any batch shape."""
     B = int(np.prod(shape[:-2]))
     n = shape[-1]
     K = spd64(B, n).reshape(shape)
     if B > 1:
         K.view(-1, n, n)[1, n - 1, n - 1] = -1.0
-    torch.testing.assert_close(k6.chol_lower(K), cl.cholesky_nan(K),
-                               rtol=0, atol=0, equal_nan=True)
+    L, Dinv = ipm_chol.chol_factor(K)
+    assert Dinv is None
+    torch.testing.assert_close(L, cl.cholesky_nan(K), rtol=0, atol=0,
+                               equal_nan=True)
 
 
 def bad_lane_system(device="cpu"):
@@ -146,19 +151,20 @@ def bad_lane_system(device="cpu"):
 
 
 def test_mixed_fallback_factors_through_the_route(monkeypatch):
-    """The mixed solver's f64 fallback factors through chol_lower, once,
-    on the f64 matrices."""
-    seen, plain = [], kkt.chol_lower
+    """The mixed solver's f64 fallback factors through the route, once,
+    on the f64 matrices, beside its f32 factor."""
+    seen, plain = [], kkt.chol_factor
 
     def counted(K):
         seen.append((K.dtype, tuple(K.shape)))
         return plain(K)
 
-    monkeypatch.setattr(kkt, "chol_lower", counted)
+    monkeypatch.setattr(kkt, "chol_factor", counted)
     K, _ = bad_lane_system()
     ksolve = kkt.mixed_spd_solver(K)
     assert ksolve.bad.tolist() == [False, True, False]
-    assert seen == [(torch.float64, (3, 16, 16))]
+    assert seen == [(torch.float32, (3, 16, 16)),
+                    (torch.float64, (3, 16, 16))]
 
 
 # ---------------------------------------------------------------------------
@@ -198,9 +204,9 @@ def test_k6_matches_plain_on_card(cuda, B, n, cond):
     cholesky_nan's (capped at 1e-3; at cond 1e12 the backward error
     carries the check)."""
     K = spd64_on(B, n, cond, cuda)
-    before = cl.LAUNCHES["K6"]
+    before = ops.LAUNCHES["K6"]
     L = k6.cholesky64(K)
-    assert cl.LAUNCHES["K6"] == before + 1
+    assert ops.LAUNCHES["K6"] == before + 1
     assert L.shape == K.shape and L.is_contiguous()
     u = 2.0 ** -52
     assert float(backward_error(L, K).max()) <= 10 * n * u
@@ -247,19 +253,19 @@ def test_k6_nan_lane_on_card(cuda, B, n, where):
 @pytest.mark.cuda
 def test_k6_refuses_bad_inputs(cuda):
     K = spd64_on(2, 64, 1e2, cuda)
-    before = cl.LAUNCHES["K6"]
+    before = ops.LAUNCHES["K6"]
     with pytest.raises(TypeError):
         k6.cholesky64(K.float())
     with pytest.raises(ValueError, match="expected"):
         k6.cholesky64(K[:, :, :60])
-    assert cl.LAUNCHES["K6"] == before
+    assert ops.LAUNCHES["K6"] == before
 
 
 @pytest.mark.cuda
 def test_k6_counts_one_portfolio_b32_call(cuda):
     """One portfolio-b32 call (the benchmark's problem) factors through
-    K6 alone: LAUNCHES["K6"] and the record's k6.launches agree, two a
-    factorization (K and the Schur complement S)."""
+    K6 alone: two launches a factorization (K and the Schur complement
+    S), by LAUNCHES["K6"]."""
     import json
     import os
     from benchmark.problems import portfolio
@@ -274,25 +280,26 @@ def test_k6_counts_one_portfolio_b32_call(cuda):
     args = [d[key] for key in ("P", "q", "G", "h", "A", "b")]
     solve(*args)
     torch.cuda.synchronize()
-    cl.reset_launches()
+    ops.reset_launches()
     solve(*args)
     rec = trace.calls()[-1]
     factors = rec.spans["kkt.factor"][0]
     assert factors > 0
-    assert cl.LAUNCHES["K6"] == rec.counters["k6.launches"] == 2 * factors
+    assert ops.LAUNCHES["K6"] == 2 * factors
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,n,on_k6", [
-    (1, 11, True), (1, k6.K6_ALONE_MAX_N, True),
-    (1, k6.K6_ALONE_MAX_N + 1, False), (1, 1010, False), (2, 1010, True)])
+    (1, 11, True), (1, ipm_chol.K6_ALONE_MAX_N, True),
+    (1, ipm_chol.K6_ALONE_MAX_N + 1, False), (1, 1010, False),
+    (2, 1010, True)])
 def test_chol_lower_on_card(cuda, B, n, on_k6):
     """The route on the card: K6's factor where k6_route takes the shape,
     cholesky_nan's (no K6 launch) where it does not."""
     K = spd64_on(B, n, 1e4, cuda)
-    before = cl.LAUNCHES["K6"]
-    L = k6.chol_lower(K)
-    assert cl.LAUNCHES["K6"] == before + on_k6
+    before = ops.LAUNCHES["K6"]
+    L, Dinv = ipm_chol.chol_factor(K)
+    assert ops.LAUNCHES["K6"] == before + on_k6 and Dinv is None
     want = k6.cholesky64(K) if on_k6 else cl.cholesky_nan(K)
     assert torch.equal(L, want)
 
@@ -303,10 +310,10 @@ def test_mixed_fallback_on_card(cuda):
     lanes of order 16): one launch, the failing lane solved to its
     condition, the others as on the CPU."""
     K, b = bad_lane_system(cuda)
-    before = cl.LAUNCHES["K6"]
+    before = ops.LAUNCHES["K6"]
     ksolve = kkt.mixed_spd_solver(K)
     assert ksolve.bad.tolist() == [False, True, False]
-    assert cl.LAUNCHES["K6"] == before + 1
+    assert ops.LAUNCHES["K6"] == before + 1
     x = ksolve(b).cpu().numpy()
     Kc, bc = K.cpu().numpy(), b.cpu().numpy()
     r = np.einsum("bij,bj->bi", Kc, x) - bc

@@ -19,9 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-from kvxopt_tpu_torch import kkt, ops, trace
+from kvxopt_tpu_torch import kkt, ops
 from kvxopt_tpu_torch.ops import _build, chol as ch, chol_ls as cl
 from kvxopt_tpu_torch.ops import chol_solve64 as c64
+from kvxopt_tpu_torch.ops import ipm_chol
 
 SHAPES = [(2, 128), (2, 200), (3, 256)]
 
@@ -219,12 +220,12 @@ def test_cpu_wrappers_never_consult_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", forbidden)
     monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
     monkeypatch.setattr(cl, "_lib", forbidden)
-    before = dict(cl.LAUNCHES)
+    before = dict(ops.LAUNCHES)
     K = torch.from_numpy(spd(2, 130))
     L, D = cl.batched_cholesky_ls(K)
     cl.chol_solve_ls(L, D, torch.ones((2, 130)))
     cl.tri_solve_ls(L, D, torch.ones((2, 130, 3)), trans=True)
-    assert cl.LAUNCHES == before
+    assert ops.LAUNCHES == before
 
 
 def test_k4_cpu_wrapper_never_consults_cuda(monkeypatch):
@@ -233,9 +234,9 @@ def test_k4_cpu_wrapper_never_consults_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", forbidden)
     monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
     monkeypatch.setattr(ch, "_lib", forbidden)
-    before = dict(cl.LAUNCHES)
+    before = dict(ops.LAUNCHES)
     ch.batched_cholesky(torch.from_numpy(spd(2, 130)))
-    assert cl.LAUNCHES == before
+    assert ops.LAUNCHES == before
     with pytest.raises(ValueError, match="unsupported or mixed devices"):
         ch.batched_cholesky(torch.empty((2, 128, 128), device="meta"))
 
@@ -326,9 +327,9 @@ def test_k3_matches_plain_on_card(cuda, B, n, k, trans):
     L, D = cl.batched_cholesky_ls(torch.from_numpy(spd(B, n)).to(cuda))
     b = torch.from_numpy(rhs(B, n, k, seed=4)).to(cuda)
     for r in k3_views(b):
-        before = cl.LAUNCHES["K3"]
+        before = ops.LAUNCHES["K3"]
         x = cl.tri_solve_ls(L, D, r, trans=trans)
-        assert cl.LAUNCHES["K3"] == before + 1
+        assert ops.LAUNCHES["K3"] == before + 1
         xr = cl.tri_solve_ls_ref(L, D, r, trans=trans)
         assert x.shape == r.shape
         assert float((x - xr).abs().max() / (xr.abs().max() + 1)) < 1e-4
@@ -362,9 +363,9 @@ def test_k2_matches_plain_on_card(cuda, B, n, k):
                     device=cuda)
     xr = cl.chol_solve_ls_ref(L, D, b)
     for label, r in rhs_views(b):
-        before = cl.LAUNCHES["K2"]
+        before = ops.LAUNCHES["K2"]
         x = cl.chol_solve_ls(L, D, r)
-        assert cl.LAUNCHES["K2"] == before + 1
+        assert ops.LAUNCHES["K2"] == before + 1
         assert x.shape == r.shape and x.is_contiguous(), label
         x3, b3 = x.reshape(B, n, k).double(), b.reshape(B, n, k).double()
         res = torch.linalg.norm(K.double() @ x3 - b3) / torch.linalg.norm(b3)
@@ -440,9 +441,9 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda, n):
 def test_k4_matches_plain_on_card(cuda, B, n):
     """K4 against its plain version and K1's L (same arithmetic)."""
     K = torch.from_numpy(spd(B, n)).to(cuda)
-    before = cl.LAUNCHES["K4"]
+    before = ops.LAUNCHES["K4"]
     L = ch.batched_cholesky(K)
-    assert cl.LAUNCHES["K4"] == before + 1
+    assert ops.LAUNCHES["K4"] == before + 1
     Lr = ch.batched_cholesky_ref(K)
     assert L.shape == (B, n, n)
     assert float((L - Lr).abs().max() / Lr.abs().max()) < 1e-5
@@ -482,10 +483,10 @@ def test_k1_contract_on_card(cuda, n):
     one wrapper launch counted per call."""
     K = spd_on(3, n, cuda)
     K0 = K.clone()
-    before = cl.LAUNCHES["K1"]
+    before = ops.LAUNCHES["K1"]
     L, D = cl.batched_cholesky_ls(K)
     torch.cuda.synchronize()
-    assert cl.LAUNCHES["K1"] == before + 1
+    assert ops.LAUNCHES["K1"] == before + 1
     assert torch.equal(K, K0)
     Lr, _ = cl.batched_cholesky_ls_ref(K)
     assert L.shape == (3, n, n) and L.is_contiguous()
@@ -532,7 +533,7 @@ def test_nan_lane_leaves_neighbour_finite_on_card(cuda, n, bad):
 
 # ---------------------------------------------------------------------------
 # K5: the f64 Cholesky solve.  On the CPU its wrapper runs the plain
-# version; kkt._chol_solve routes by (device, dtype, k) alone.
+# version; ops.ipm_chol.chol_solve routes by (device, dtype, n, k) alone.
 # ---------------------------------------------------------------------------
 
 def spd64(B, n, seed=1):
@@ -562,18 +563,18 @@ def test_k5_cpu_takes_plain_path(monkeypatch):
         raise AssertionError("CPU path consulted CUDA or the kernels")
     monkeypatch.setattr(torch.cuda, "current_stream", forbidden)
     monkeypatch.setattr(c64, "_lib", forbidden)
-    before = dict(cl.LAUNCHES)
+    before = dict(ops.LAUNCHES)
     L = torch.linalg.cholesky(spd64(2, 70))
     c64.chol_solve64(L, torch.ones((2, 70)))
     kkt._spd_chol(spd64(2, 70), 0.0)(torch.ones((2, 70, 11)))
-    assert cl.LAUNCHES == before
+    assert ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dev,dtype,n,k,route", [
     ("cuda", torch.float64, 1010, 1, True),
     ("cuda", torch.float64, 1010, 11, True),
-    ("cuda", torch.float64, 1010, kkt.K5_MAX_K, True),
-    ("cuda", torch.float64, 1010, kkt.K5_MAX_K + 1, False),
+    ("cuda", torch.float64, 1010, ipm_chol.K5_MAX_K, True),
+    ("cuda", torch.float64, 1010, ipm_chol.K5_MAX_K + 1, False),
     ("cuda", torch.float64, 78848, 1, True),
     ("cuda", torch.float64, 78849, 1, False),
     ("cuda", torch.float32, 1010, 1, False),
@@ -581,10 +582,10 @@ def test_k5_cpu_takes_plain_path(monkeypatch):
     ("cpu", torch.float32, 1010, 11, False),
 ])
 def test_solve_route(dev, dtype, n, k, route):
-    """The rule kkt._chol_solve applies to a dense factor: the device, the
-    dtype, k, and whether K5's shared memory holds the order n (up to
-    78848), nothing else."""
-    assert kkt.k5_route(torch.device(dev), dtype, n, k) is route
+    """The rule ops.ipm_chol.chol_solve applies to an f64 factor: the
+    device, the dtype, k, and whether K5's shared memory holds the order n
+    (up to 78848), nothing else."""
+    assert ipm_chol.k5_route(torch.device(dev), dtype, n, k) is route
 
 
 def _k5_fill_C(B, n, k, kb, sms=132):
@@ -677,9 +678,9 @@ def test_k5_matches_plain_on_card(cuda, B, n, k, cond):
     g = torch.Generator(device=cuda).manual_seed(4)
     b = torch.randn((B, n) if k == 1 else (B, n, k), generator=g,
                     device=cuda, dtype=torch.float64)
-    before = cl.LAUNCHES["K5"]
+    before = ops.LAUNCHES["K5"]
     x = c64.chol_solve64(L, b)
-    assert cl.LAUNCHES["K5"] == before + 1
+    assert ops.LAUNCHES["K5"] == before + 1
     assert x.shape == b.shape and x.is_contiguous()
     xr = cl.chol_solve_ls_ref(L, None, b)
     u = 2.0 ** -53
@@ -702,9 +703,9 @@ def test_k5_launch_plans_on_card(cuda, B, n, k):
     column tiles of 8 and of 2 and 4, and two blocks in all."""
     L = torch.linalg.cholesky(spd64_on(B, n, 1e6, cuda))
     b = torch.randn((B, n, k), device=cuda, dtype=torch.float64)
-    before = cl.LAUNCHES["K5"]
+    before = ops.LAUNCHES["K5"]
     x = c64.chol_solve64(L, b)
-    assert cl.LAUNCHES["K5"] == before + 1
+    assert ops.LAUNCHES["K5"] == before + 1
     xr = cl.chol_solve_ls_ref(L, None, b)
     err = torch.linalg.norm(x - xr, dim=(1, 2)) / torch.linalg.norm(
         xr, dim=(1, 2))
@@ -729,9 +730,9 @@ def test_k5_large_orders_on_card(cuda, B, n, k):
     L = U.mT                        # column-major, as cuSOLVER's factors
     b = torch.randn((B, n, k), generator=g, device=cuda,
                     dtype=torch.float64)
-    before = cl.LAUNCHES["K5"]
+    before = ops.LAUNCHES["K5"]
     x = c64.chol_solve64(L, b)
-    assert cl.LAUNCHES["K5"] == before + 1
+    assert ops.LAUNCHES["K5"] == before + 1
     xr = cl.chol_solve_ls_ref(L, None, b)
     err = torch.linalg.norm(x - xr, dim=(1, 2)) / torch.linalg.norm(
         xr, dim=(1, 2))
@@ -780,7 +781,7 @@ def test_k5_nan_lane_on_card(cuda, n, k):
 def test_k5_refuses_bad_inputs(cuda):
     L = torch.linalg.cholesky(spd64_on(2, 64, 1e2, cuda))
     b = torch.ones((2, 64), device=cuda, dtype=torch.float64)
-    before = cl.LAUNCHES["K5"]
+    before = ops.LAUNCHES["K5"]
     with pytest.raises(TypeError):
         c64.chol_solve64(L.float(), b)
     with pytest.raises(TypeError):
@@ -797,20 +798,19 @@ def test_k5_refuses_bad_inputs(cuda):
         c64.chol_solve64(L[:, :, :60], b)
     with pytest.raises(ValueError, match="mixed devices"):
         c64.chol_solve64(L, b.cpu())
-    assert cl.LAUNCHES["K5"] == before
+    assert ops.LAUNCHES["K5"] == before
 
 
 @pytest.mark.cuda
 def test_k5_counts_in_the_program_record(cuda):
-    """kkt's f64 chol2 solve on the card goes through K5 and says so in the
-    open root's counters."""
+    """kkt's f64 chol2 solve on the card goes through K5, one launch a
+    solve by LAUNCHES, the one launch count."""
     K = spd64_on(4, 300, 1e3, cuda)
-    trace.clear()
-    with trace.root("qp"):
-        s = kkt._spd_chol(K, 0.0)
-        x = s(torch.ones((4, 300), device=cuda, dtype=torch.float64))
-        s(torch.ones((4, 300, 11), device=cuda, dtype=torch.float64))
-    assert trace.calls()[-1].counters["k5.launches"] == 2
+    before = ops.LAUNCHES["K5"]
+    s = kkt._spd_chol(K, 0.0)
+    x = s(torch.ones((4, 300), device=cuda, dtype=torch.float64))
+    s(torch.ones((4, 300, 11), device=cuda, dtype=torch.float64))
+    assert ops.LAUNCHES["K5"] == before + 2
     xr = cl.chol_solve_ls_ref(torch.linalg.cholesky(K), None,
                               torch.ones((4, 300), device=cuda,
                                          dtype=torch.float64))
