@@ -57,6 +57,14 @@ Phases (any failure exits non-zero and prints no result):
      host times, device times beside K6's bound, and K6's launches in
      one portfolio-b32 call by ops.LAUNCHES, two a factorization (K and
      the Schur complement);
+  2d. K7 (chol2's K = C0 + G' diag(d)^-2 G + reg I on an orthant)
+     against its plain version at (B, m, n) = (100,1000,1010) with G and
+     C0 shared (portfolio-frontier), (32,1000,1010) batched (portfolio-
+     b32) and (1,1000,1010) shared (portfolio-single), entry by entry
+     within 2 (m + 4) u (|C0| + |G|' diag(w) |G|), with K7, plain and
+     torch.matmul's GEMM of the formed scaled G host times, device times
+     beside K7's bound, and K7's launches in one portfolio-b32 call by
+     ops.LAUNCHES, one a factorization of K;
   3. batched_qp_solver_mixed on 16 random QPs (n=512, m=1024 orthant,
      f64 state, abstol/feastol 1e-7): every lane optimal, KKT residuals
      < 1e-6, K1-K3 launched during the solve;
@@ -268,7 +276,8 @@ Each pass-1 breakdown prints K1's, K2's and K3's device time, launches
 and share, cuSOLVER's eigh and potrf kernels' the same way, and the host's
 synchronizing calls per IPM iteration.  The line before the card's line
 is the kernels line: per kernel its launches on the main path (phase 7;
-K4: phase 2; K5 and K6: one portfolio-b32 call, phases 2b and 2c), in
+K4: phase 2; K5, K6 and K7: one portfolio-b32 call, phases 2b, 2c
+and 2d), in
 phase 14(b) (launches_phase14), in phase 16(a)'s
 group=1 run (launches_phase16) and in phase 17(e) (launches_phase17),
 its error against
@@ -1382,6 +1391,95 @@ def k6(dev):
     return row, launches
 
 
+# K7 at the batch cells' products: (B, m, n, G and C0 shared) for
+# portfolio-frontier, portfolio-b32 and portfolio-single
+K7_TIMES = ((100, 1000, 1010, True), (32, 1000, 1010, False),
+            (1, 1000, 1010, True))
+K7_KEYS = ("gram64_kernel",)
+# the GEMM of the formed scaled G: cuBLAS's f64 kernels
+GEMM_KEYS = ("gemm",)
+
+
+def k7_work(Bn, m, n, shared):
+    """Bytes and flops of K7 at (B, m, n): G read once (once for all
+    lanes where shared) and K's lower triangle written once; the syrk's
+    m n^2 flops a lane."""
+    g = m * n * (1 if shared else Bn)
+    return 8 * (g + Bn * n * (n + 1) // 2), Bn * m * n * n
+
+
+def k7(dev):
+    """K7 against its plain version at K7_TIMES, d spread over decades:
+    K's lower triangle within 2 (m + 4) u (|C0| + |G|' diag(w) |G|) of
+    the plain version's, entry by entry; then its times: host median of
+    20 for K7, the plain version (the formed scaled G, C0 + Gs' Gs, reg)
+    and torch.matmul's GEMM Gs' Gs alone, device time per call from one
+    profiler window each (K7 warm, and cold behind a 64 MB write), beside
+    its bound; then its launches in one portfolio-b32 call, one a
+    factorization of K.  -> the K7 row of the kernels line (the first
+    shape) and those launches."""
+    from kvxopt_tpu_torch.ops import gram64 as g7
+    scratch = torch.empty(16 * 2 ** 20, device=dev)
+    row = None
+    for Bn, m, n, shared in K7_TIMES:
+        g = torch.Generator(device=dev).manual_seed(11)
+        G = torch.randn((m, n) if shared else (Bn, m, n), generator=g,
+                        device=dev, dtype=torch.float64)
+        d = torch.exp(2.0 * torch.randn((Bn, m), generator=g, device=dev,
+                                        dtype=torch.float64))
+        R = torch.randn((n, n) if shared else (Bn, n, n), generator=g,
+                        device=dev, dtype=torch.float64)
+        C0 = R @ R.mT
+        K = g7.gram64(C0, G, d, 1e-9)
+        Kr = g7.gram64_ref(C0, G, d, 1e-9)
+        absb = g7.gram64_ref(C0.abs(), G.abs(), d, 0.0)
+        low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
+        over = float(((K - Kr).abs() - 2 * (m + 4) * 2.0 ** -52 * absb)
+                     [..., low].max())
+        err = float(((K - Kr).abs()[..., low]).max() / Kr.abs().max())
+        check(over <= 0.0, f"K7 B={Bn} m={m} n={n}: beyond its bound "
+              f"({err:.3e})")
+        Gs = G / d[..., None]
+
+        def kern():
+            return g7.gram64(C0, G, d, 1e-9)
+
+        def plain():
+            return g7.gram64_ref(C0, G, d, 1e-9)
+
+        def lib():
+            return Gs.mT @ Gs
+
+        t = dict(err=err, ms=median_ms(kern), plain=median_ms(plain),
+                 lib=median_ms(lib))
+        warm = profile_ms(kern, keys=K7_KEYS)
+        cold = profile_ms(kern, keys=K7_KEYS, flush=scratch.zero_)
+        pl = profile_ms(plain, keys=GEMM_KEYS)
+        libd = profile_ms(lib, keys=GEMM_KEYS)
+        bd, by = bound(*k7_work(Bn, m, n, shared))
+        t.update(bound=bd, bound_by=by)
+        if None not in (warm, cold, pl, libd):
+            t.update(dev=warm[1], dev_cold=cold[1], dev_plain=pl[0],
+                     dev_lib=libd[0])
+            dtxt = (f"; device: K7 {warm[1]:.4f} ms warm, {cold[1]:.4f} "
+                    f"cold ({100 * bd / cold[1]:.1f}% of the bound), plain "
+                    f"{pl[0]:.4f} (GEMM {pl[1]:.4f}), torch.matmul "
+                    f"{libd[0]:.4f}")
+        else:
+            dtxt = "; device time not measured"
+        print(f"time K7 B={Bn} m={m} n={n} shared={shared}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain']:.4f} ms, torch.matmul "
+              f"{t['lib']:.4f} ms (host, median of 20); bound {bd:.4f} ms "
+              f"({by}); max|K-Kref|/max|Kref| {err:.2e}{dtxt}", flush=True)
+        if row is None:
+            row = t
+        del G, d, R, C0, K, Kr, absb, Gs
+    launches, rec = portfolio_call(dev, "K7")
+    check(launches == rec.spans["kkt.factor"][0],
+          "K7: not one launch a factorization in portfolio-b32")
+    return row, launches
+
+
 def scaling_rows(dev):
     """Factor-only rows as bench.py's kernel-scaling rows:
     TFLOP/s = B n^3 / 3 / t for K1, K4 and the plain version."""
@@ -1446,7 +1544,8 @@ def kernel_bounds():
             "K3": bound(*solve_work(B, N, N, 1)),
             "K4": bound(*factor_work(B, N, False)),
             "K5": bound(*k5_work(*K5_TIMES[0])),
-            "K6": bound(*k6_work(*K6_TIMES[0]))}
+            "K6": bound(*k6_work(*K6_TIMES[0])),
+            "K7": bound(*k7_work(*K7_TIMES[0]))}
 
 
 def residuals(P, q, G, h, x, s, z, A=None, b=None, y=None):
@@ -4400,6 +4499,8 @@ def main():
     stamp("phase 2b")
     rows["K6"], k6_launches = k6(dev)
     stamp("phase 2c")
+    rows["K7"], k7_launches = k7(dev)
+    stamp("phase 2d")
 
     gpu, _, _, walls3 = solve_phase("slice", dev, *slice_data("slice"))
     stamp("phase 3")
@@ -4451,18 +4552,21 @@ def main():
     launches["K4"] = k4_launches
     launches["K5"] = k5_launches
     launches["K6"] = k6_launches
+    launches["K7"] = k7_launches
     replaces = {"K1": "kvxopt_tpu/ops/chol_ls.py:358",
                 "K2": "kvxopt_tpu/ops/chol_ls.py:517",
                 "K3": "kvxopt_tpu/ops/chol_ls.py:592",
                 "K4": "kvxopt_tpu/ops/chol.py:139",
                 "K5": "none (the JAX package leaves f64 solves to XLA)",
-                "K6": "none (the JAX package leaves f64 factors to XLA)"}
+                "K6": "none (the JAX package leaves f64 factors to XLA)",
+                "K7": "none (the JAX package leaves chol2's K to XLA)"}
     sources = {"K1": "kvxopt_tpu_torch/csrc/chol_ls.cu",
                "K2": "kvxopt_tpu_torch/csrc/chol_solve.cu",
                "K3": "kvxopt_tpu_torch/csrc/tri_solve.cu",
                "K4": "kvxopt_tpu_torch/csrc/chol.cu",
                "K5": "kvxopt_tpu_torch/csrc/chol_solve64.cu",
-               "K6": "kvxopt_tpu_torch/csrc/chol64.cu"}
+               "K6": "kvxopt_tpu_torch/csrc/chol64.cu",
+               "K7": "kvxopt_tpu_torch/csrc/gram64.cu"}
     bounds = kernel_bounds()
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": sources[k],

@@ -110,37 +110,6 @@ __device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[4],
                    "d"(b1));
 }
 
-// d += a b over a 16 x 16 by 16 x 8 product: lane (g, t) holds
-// A[g + 8 (i % 2)][t + 4 (i / 2)] in a[i], B[t + 4 i][g] in b[i] and D as
-// dmma16's.
-__device__ __forceinline__ void dmma16x16(double (&d)[4], const double (&a)[8],
-                                          const double (&b)[4])
-{
-    asm volatile("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64"
-                 " {%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11},"
-                 " {%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
-                 : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-                 : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]),
-                   "d"(a[5]), "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]),
-                   "d"(b[2]), "d"(b[3]));
-}
-
-__device__ __forceinline__ void cp_async16(double* dst, const double* src,
-                                           bool ok)
-{
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(double* dst, const double* src,
-                                          bool ok)
-{
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 8 : 0)
-                 : "memory");
-}
-
 // Wait until at most n (0..K6_S - 1) of this thread's cp.async groups are
 // pending: the count is an immediate.
 __device__ __forceinline__ void cp_async_wait_upto(int n)

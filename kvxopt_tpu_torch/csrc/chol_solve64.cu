@@ -105,22 +105,6 @@ int k5_smem(int nb, int C, int kb, int S)
            8 * ((P + 3) * K5_T * kb + K5_NW * (S * K5_TILE + own * K5_T * kb));
 }
 
-__device__ __forceinline__ void cp_async16(double* dst, const double* src,
-                                           bool ok)
-{
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(double* dst, const double* src,
-                                          bool ok)
-{
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 8 : 0)
-                 : "memory");
-}
-
 // Wait until at most n (0..6) of this thread's cp.async groups are
 // pending: the ring's depth is a launch parameter, the instruction's count
 // an immediate.

@@ -1,6 +1,7 @@
 // Helpers shared by the port's kernels: cp.async copies into shared
-// memory with zero-fill, mbarriers across a cluster, and the
-// once-per-process shared-memory limit.
+// memory with zero-fill, the f64 m16n8k16 tensor-core product,
+// mbarriers across a cluster, and the once-per-process shared-memory
+// limit.
 //
 // Everything here is static or in an anonymous namespace: each source
 // that includes this header gets its own copy and builds as a separate
@@ -71,6 +72,41 @@ __device__ __forceinline__ void tile_async(float* dst, int dld,
 __device__ __forceinline__ unsigned smem_u32(const void* p)
 {
     return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Copy 16 or 8 bytes of doubles into shared memory; ok = false writes
+// zeros and reads nothing (K5, K6, K7).
+__device__ __forceinline__ void cp_async16(double* dst, const double* src,
+                                           bool ok)
+{
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool ok)
+{
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 8 : 0)
+                 : "memory");
+}
+
+// d += a b over a 16 x 16 by 16 x 8 f64 product on the tensor cores
+// (K6, K7): lane (g, t) = (lane / 4, lane % 4) holds
+// A[g + 8 (i % 2)][t + 4 (i / 2)] in a[i], B[t + 4 i][g] in b[i] and
+// D[g][2t + e], D[g + 8][2t + e] in d[e], d[2 + e] (e = 0, 1).  Hopper
+// runs the m16n8 f64 shapes at the full f64 tensor rate, m8n8k4 at half.
+__device__ __forceinline__ void dmma16x16(double (&d)[4], const double (&a)[8],
+                                          const double (&b)[4])
+{
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64"
+                 " {%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11},"
+                 " {%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+                 : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+                 : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]),
+                   "d"(a[5]), "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]),
+                   "d"(b[2]), "d"(b[3]));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count = 1)

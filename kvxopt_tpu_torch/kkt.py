@@ -31,7 +31,8 @@ import torch
 from . import cones, config
 from .cones import ConeDims
 from .ops.chol_ls import chol_solve_ls_ref
-from .ops.ipm_chol import chol_factor, chol_solve, tri_lower_solve
+from .ops.ipm_chol import (chol_factor, chol_solve, k7_route, scaled_gram,
+                           tri_lower_solve)
 from .ops.ozaki import OzakiOperator, ata
 
 STRATEGIES = ("ldl", "ldl2", "chol", "chol2", "qr", "chol2_mixed",
@@ -128,23 +129,39 @@ def _empty_y(bx):
 # chol2 — condensed normal equations (reference misc.py:1352 kkt_chol2)
 # ---------------------------------------------------------------------------
 
-def _condensed_solve(edims, W, Gs, A, ksolve, spd_solver):
+def _formed(Gs):
+    """A formed Gs = W^{-T} Geff as _condensed_solve reads it: (lanes,
+    u -> Gs u, b -> Gs' b)."""
+    return Gs.shape[0], partial(_mv, Gs), partial(_tmv, Gs)
+
+
+def _orthant(G, d):
+    """Gs = diag(d)^{-1} G on an orthant, never formed: Gs u = (G u) / d
+    and Gs' b = G' (b / d), each one GEMM over the lanes where G is
+    shared."""
+    return (d.shape[0], lambda u: _mv(G, u) / d,
+            lambda b: _tmv(G, b / d))
+
+
+def _condensed_solve(edims, W, gs, A, ksolve, spd_solver):
     """The Newton-system solve of the condensed strategies: uz eliminated,
     K^{-1} applied by ksolve, and with p > 0 the Schur complement
     S = A K^{-1} A' (K^{-1} A' one ksolve with p right-hand sides) solved
-    by spd_solver(S).  A (p, n) shared by the lanes is one right-hand
-    side block for every lane's factor, read in place."""
+    by spd_solver(S).  gs is Gs as _formed or _orthant give it.  A (p, n)
+    shared by the lanes is one right-hand side block for every lane's
+    factor, read in place."""
+    lanes, gs_mv, gs_tmv = gs
     p = A.shape[-2]
     if p:
         At = A.mT
         if A.ndim == 2:
-            At = At.expand(Gs.shape[0], *At.shape)
+            At = At.expand(lanes, *At.shape)
         KiAt = ksolve(At)
         ssolve = spd_solver(A @ KiAt if A.ndim == 3 else KiAt.mT @ A.mT)
 
     def solve(bx, by, bz):
         bzs = cones.scale(edims, W, bz, trans=True, inverse=True)
-        f = bx + _tmv(Gs, bzs)
+        f = bx + gs_tmv(bzs)
         if p:
             Kif = ksolve(f)
             uy = ssolve(_mv(A, Kif) - by)
@@ -153,7 +170,7 @@ def _condensed_solve(edims, W, Gs, A, ksolve, spd_solver):
             ux = ksolve(f)
             uy = _empty_y(bx)
         # uz = (W'W)^{-1} (Geff ux - bz) = W^{-1} (Gs ux - W^{-T} bz)
-        uz = cones.scale(edims, W, _mv(Gs, ux) - bzs, inverse=True)
+        uz = cones.scale(edims, W, gs_mv(ux) - bzs, inverse=True)
         return ux, uy, uz
 
     return solve
@@ -161,11 +178,21 @@ def _condensed_solve(edims, W, Gs, A, ksolve, spd_solver):
 
 def _kkt_chol2(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
     """Eliminate uz, factor K = P + H + Gs'Gs (Gs = W^{-T} Geff), then a
-    Schur complement S = A K^{-1} A' over the equality constraints."""
+    Schur complement S = A K^{-1} A' over the equality constraints.  On an
+    orthant (no q or s rows) where k7_route takes the shape, Gs =
+    diag(d)^{-1} Geff is never formed: K + reg I comes from Geff and d
+    (scaled_gram), and the solve applies Gs through Geff."""
     Geff = _geff(G, Df, mnl)
+    if not (edims.q or edims.s) and k7_route(Geff.device, Geff.dtype,
+                                             *Geff.shape[-2:]):
+        C0 = None if P is None and H is None else _keff(P, H, G)
+        K = scaled_gram(C0, Geff, W.d, reg)
+        return _condensed_solve(edims, W, _orthant(Geff, W.d), A,
+                                _spd_chol(K, 0.0),
+                                lambda S: _spd_chol(S, reg))
     Gs = cones.wtw_scale_cols(edims, W, Geff)
     K = _keff(P, H, G) + Gs.transpose(-1, -2) @ Gs
-    return _condensed_solve(edims, W, Gs, A, _spd_chol(K, reg),
+    return _condensed_solve(edims, W, _formed(Gs), A, _spd_chol(K, reg),
                             lambda S: _spd_chol(S, reg))
 
 
@@ -423,7 +450,7 @@ def _kkt_chol2_mixed(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None,
     ksolve = _mixed_core(kmul, Kx32, G.dtype, k64_build,
                          fallback=fallback, keq64_build=keq64_build)
     return _condensed_solve(
-        edims, W, Gs, A, ksolve,
+        edims, W, _formed(Gs), A, ksolve,
         lambda S: mixed_spd_solver(S, reg, fallback=fallback, ozaki=ozaki,
                                    facref=facref))
 

@@ -2,9 +2,10 @@
 plain PyTorch version beside each: batched block Cholesky with
 diagonal-block inverses (K1) and the triangular solves against it (K2,
 K3) in ops/chol_ls.py, the L-only batched Cholesky (K4) in ops/chol.py,
-the f64 Cholesky solve (K5) in ops/chol_solve64.py and the f64 Cholesky
-factor (K6) in ops/chol64.py.  ops/ipm_chol.py routes the KKT
-strategies' factors and solves to them; ops/_build.py builds and loads
+the f64 Cholesky solve (K5) in ops/chol_solve64.py, the f64 Cholesky
+factor (K6) in ops/chol64.py and chol2's f64 scaled Gram product (K7) in
+ops/gram64.py.  ops/ipm_chol.py routes the KKT strategies' products,
+factors and solves to them; ops/_build.py builds and loads
 the library and counts every launch (LAUNCHES per kernel, LAUNCH_SHAPES
 per (kernel, n, k), reset_launches() zeroes both)."""
 

@@ -42,6 +42,7 @@ BUILD_INFO = {"seconds": None, "path": None, "log": ""}
 # error code (int), except K6's occupancy query, which returns a count, or
 # minus the error code.
 _VP, _CI, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_DB = ctypes.c_double
 _ARGTYPES = {
     "kvx_chol_ls": [_VP, _VP, _VP, _CI, _CI, _CI, _VP],              # K1
     "kvx_chol_solve": [_VP, _VP, _VP, _VP, _CI, _CI, _CI, _LL, _LL,
@@ -53,12 +54,15 @@ _ARGTYPES = {
                          _CI, _CI, _CI, _CI, _VP],                  # K5
     "kvx_chol64": [_VP, _VP, _CI, _CI, _CI, _VP],                    # K6
     "kvx_chol64_clusters": [_CI],
+    "kvx_gram64": [_VP, _LL, _CI, _VP, _VP, _VP, _LL, _DB, _VP, _CI, _CI,
+                   _CI, _CI, _VP],                                  # K7
 }
 
 # Kernel launches per kernel, counted by each wrapper where it launches
 # its kernel, and the same launches by (kernel, n, k): n the matrix
 # order, k the right-hand sides (0 for a factor).
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
+            "K7": 0}
 LAUNCH_SHAPES = collections.Counter()
 
 

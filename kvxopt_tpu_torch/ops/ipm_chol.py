@@ -25,6 +25,9 @@ None, since nothing reads f64 block inverses.  Which kernel runs where:
   cholesky_nan (cuSOLVER on the card).
 - f64 solve: K5 (ops/chol_solve64.py) where k5_route takes the shape,
   else the two triangular solves of chol_ls.chol_solve_ls_ref.
+- chol2's K = C0 + G' diag(d)^-2 G + reg I on an orthant: K7
+  (ops/gram64.py) where k7_route takes the shape; else kkt forms the
+  scaled G and its product itself.
 - f64 triangular solves: torch.linalg.solve_triangular.
 """
 
@@ -36,6 +39,7 @@ from . import chol_ls
 from .chol64 import cholesky64, k6_fits
 from .chol_ls import cholesky_nan
 from .chol_solve64 import chol_solve64, k5_fits
+from .gram64 import gram64, k7_fits
 
 # The largest order that K6 takes alone (B = 1).  A single factor is one
 # lane's chain of diagonal tiles for K6, while cuSOLVER's unbatched potrf
@@ -70,6 +74,26 @@ def k5_route(device, dtype, n, k):
     the plain version."""
     return (device.type == "cuda" and dtype == torch.float64
             and k <= K5_MAX_K and k5_fits(n))
+
+
+def k7_route(device, dtype, m, n):
+    """Whether chol2's K over an orthant's m scaled rows, of order n, is
+    built by K7 from G and d (the scaled G never formed): on a CUDA
+    device, float64, with an m and n that K7 takes, whatever the batch.
+    On an H100 at m = 1000, n = 1010 (device ms, K7 / the formed scaled G
+    with its GEMM and passes): B = 100 2.81 / 6.37, B = 32 0.95 / 2.50,
+    and B = 1 0.071 / 0.072 on the device and 0.12 / 0.20 host time a
+    call, so a single product goes to K7 too."""
+    return (device.type == "cuda" and dtype == torch.float64
+            and k7_fits(m, n))
+
+
+def scaled_gram(C0, G, d, reg):
+    """K = C0 + G' diag(d)^-2 G + reg I, C0 None, (n, n) or (B, n, n):
+    K7 on the card, its plain version on the CPU.  On the card only K's
+    lower triangle and diagonal tiles are written, as chol_factor reads
+    them."""
+    return gram64(C0, G, d, reg)
 
 
 def _kernel_dtype(L, rhs):
