@@ -20,6 +20,13 @@ refinement), each with a Schur complement over A when p > 0, the
 null-space strategies `chol` and `qr`, and the regularized
 quasidefinite LDL' strategies `ldl` (the full 3x3 system) and `ldl2`
 (uz eliminated), on any l + q + s cone.
+
+`chol2`'s factor also takes factor(W, fallback=lanes): the lanes named
+there are factored and solved by `ldl` on those lanes alone, gathered,
+and scattered back (_on_ldl).  The IPM core names the lanes whose chol2
+step was not finite, or whose K lost a pivot to cancellation (the
+solve's `weak`), in solvers.coneprog._coneqp_core; the factor a strategy
+returns says whether it takes the keyword (`lane_fallback`).
 """
 
 from __future__ import annotations
@@ -28,11 +35,11 @@ from functools import partial
 
 import torch
 
-from . import cones, config
-from .cones import ConeDims
+from . import cones, config, trace
+from .cones import ConeDims, NTScaling
 from .ops.chol_ls import chol_solve_ls_ref
 from .ops.ipm_chol import (chol_factor, chol_solve, k7_route, scaled_gram,
-                           tri_lower_solve)
+                           tri_lower_solve, tri_lower_t_solve)
 from .ops.ozaki import OzakiOperator, ata
 
 STRATEGIES = ("ldl", "ldl2", "chol", "chol2", "qr", "chol2_mixed",
@@ -86,7 +93,9 @@ def make_kkt_solver(name, dims: ConeDims, G, A=None, P=None, mnl: int = 0,
           # it with an all-f64 re-solve of the lanes that failed
           "chol2_mixed_nofb": partial(_kkt_chol2_mixed, fallback=False,
                                       ozaki=ozaki, facref=facref)}[name]
-    return partial(fn, dims, edims, G, A, P, mnl, reg)
+    factor = partial(fn, dims, edims, G, A, P, mnl, reg)
+    factor.lane_fallback = name == "chol2"
+    return factor
 
 
 def _geff(G, Df, mnl):
@@ -176,24 +185,97 @@ def _condensed_solve(edims, W, gs, A, ksolve, spd_solver):
     return solve
 
 
-def _kkt_chol2(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
+# A pivot of chol2's K that keeps less than this share of its diagonal
+# has lost ~12 of its 16 digits to cancellation: the lane's factor is
+# about to break down (kkt._on_ldl), and the core moves the lane to the
+# fallback from its next step.  On the OSQP lasso the lanes that break
+# read 7e-13 to 6e-16 the step before, those that do not 1e-7 to 1e-10
+# at their last step; where no two rows of G share a variable (an
+# orthant on the variables, as in the portfolio) K's pivots keep their
+# diagonal whole.
+WEAK_PIVOT = 1e-12
+
+
+def _weak_chol(K, reg):
+    """(b -> K^{-1} b, the (B,) lanes whose Cholesky factor of K + reg I
+    holds a pivot below WEAK_PIVOT of its diagonal)."""
+    L, Dinv = _chol_spd(K, reg)
+    Ld, Kd = (torch.diagonal(M, dim1=-2, dim2=-1) for M in (L, K))
+    # K_ii + reg - L_ii^2 / WEAK_PIVOT > 0 at a weak pivot; NaN reads False
+    weak = torch.addcmul(Kd + reg if reg else Kd, Ld, Ld,
+                         value=-1.0 / WEAK_PIVOT).amax(-1) > 0
+    return (lambda b: chol_solve(L, Dinv, b)), weak
+
+
+def _kkt_chol2(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None,
+               fallback=None):
     """Eliminate uz, factor K = P + H + Gs'Gs (Gs = W^{-T} Geff), then a
     Schur complement S = A K^{-1} A' over the equality constraints.  On an
     orthant (no q or s rows) where k7_route takes the shape, Gs =
     diag(d)^{-1} Geff is never formed: K + reg I comes from Geff and d
-    (scaled_gram), and the solve applies Gs through Geff."""
+    (scaled_gram), and the solve applies Gs through Geff.  fallback: the
+    indices of the lanes that `ldl` serves instead (_on_ldl), or None.
+    The solve's `weak` is the (B,) mask of lanes whose K lost most of a
+    pivot (WEAK_PIVOT)."""
     Geff = _geff(G, Df, mnl)
     if not (edims.q or edims.s) and k7_route(Geff.device, Geff.dtype,
                                              *Geff.shape[-2:]):
         C0 = None if P is None and H is None else _keff(P, H, G)
-        K = scaled_gram(C0, Geff, W.d, reg)
-        return _condensed_solve(edims, W, _orthant(Geff, W.d), A,
-                                _spd_chol(K, 0.0),
-                                lambda S: _spd_chol(S, reg))
-    Gs = cones.wtw_scale_cols(edims, W, Geff)
-    K = _keff(P, H, G) + Gs.transpose(-1, -2) @ Gs
-    return _condensed_solve(edims, W, _formed(Gs), A, _spd_chol(K, reg),
-                            lambda S: _spd_chol(S, reg))
+        ksolve, weak = _weak_chol(scaled_gram(C0, Geff, W.d, reg), 0.0)
+        gs = _orthant(Geff, W.d)
+    else:
+        Gs = cones.wtw_scale_cols(edims, W, Geff)
+        ksolve, weak = _weak_chol(
+            _keff(P, H, G) + Gs.transpose(-1, -2) @ Gs, reg)
+        gs = _formed(Gs)
+    solve = _condensed_solve(edims, W, gs, A, ksolve,
+                             lambda S: _spd_chol(S, reg))
+    if fallback is not None:
+        solve = _on_ldl(solve, fallback, dims, edims, G, A, P, mnl, reg, W,
+                        H, Df)
+    solve.weak = weak
+    return solve
+
+
+def _on_ldl(solve, lanes, dims, edims, G, A, P, mnl, reg, W, H, Df):
+    """chol2's solve with the lanes `lanes` answered by `ldl` (_kkt_ldl,
+    its regularization and one refinement step) on those lanes alone.
+
+    Where a variable's two orthant rows make it a 2x2 block of K whose
+    eigenvalues differ by orders (lasso's -t <= x <= t with one row
+    active: D1 [[1, -1], [-1, 1]] + D2 [[1, 1], [1, 1]], D1/D2 -> 1e16),
+    K's second pivot there is a difference of two numbers of size D1 and
+    its Cholesky factor breaks down.  `ldl` keeps W^{-T} G as its own
+    block of the augmented system and never forms that block.  chol2
+    still factors every lane, so its kernels keep the batch's shapes; the
+    named lanes' answers are replaced."""
+    idx = torch.as_tensor(lanes, dtype=torch.long)
+    k = idx.shape[0]
+    trace.count("kkt.fallback_lanes", k)
+
+    def take(M):
+        # a matrix shared by the lanes (2-D) becomes a stride-0 batch
+        if M is None:
+            return None
+        return M[idx] if M.ndim == 3 else M.expand(k, *M.shape)
+
+    with trace.span("kkt.fallback"):
+        if G.device.type == "cuda":
+            # from pinned memory the copy does not wait for the card
+            idx = idx.pin_memory().to(G.device, non_blocking=True)
+        Wk = NTScaling(*(tuple(t[idx] for t in f) if isinstance(f, tuple)
+                         else f[idx] for f in W))
+        lsolve = _kkt_ldl(dims, edims, take(G), take(A), take(P), mnl, reg,
+                          Wk, take(H), take(Df))
+
+    def both(bx, by, bz):
+        ux, uy, uz = solve(bx, by, bz)
+        with trace.span("kkt.fallback"):
+            fx, fy, fz = lsolve(bx[idx], by[idx], bz[idx])
+            return (ux.index_copy(0, idx, fx), uy.index_copy(0, idx, fy),
+                    uz.index_copy(0, idx, fz))
+
+    return both
 
 
 # ---------------------------------------------------------------------------
@@ -522,9 +604,9 @@ DEFAULT_KKTREG = 1e-9
 
 
 def _set_diag(M, lo, hi, val):
-    """M[:, i, i] = val for lo <= i < hi."""
-    i = torch.arange(lo, hi, device=M.device)
-    M[:, i, i] = val
+    """M[:, i, i] = val for lo <= i < hi (a fill of the diagonal's view:
+    an indexed store of a Python number waits for the card)."""
+    torch.diagonal(M, dim1=-2, dim2=-1)[:, lo:hi].fill_(val)
 
 
 def ldl_nopiv(M, block: int = 64):
@@ -571,11 +653,38 @@ def ldl_solve(L, d, b):
                                          unitriangular=True)[..., 0]
 
 
-def _ldl_refined(L, d, rhs, mul):
-    """One LDL' solve and one step of iterative refinement against the
-    unregularized system, whose product is mul(u)."""
-    u = ldl_solve(L, d, rhs)
-    return u + ldl_solve(L, d, rhs - mul(u))
+def _refined(msolve, rhs, mul):
+    """One solve with the regularized factor and one step of iterative
+    refinement against the unregularized system, whose product is
+    mul(u)."""
+    u = msolve(rhs)
+    return u + msolve(rhs - mul(u))
+
+
+def _ldl_solver(M):
+    """b -> M^{-1} b through ldl_nopiv's factor of M (B, n, n)."""
+    L, d = ldl_nopiv(M)
+    return partial(ldl_solve, L, d)
+
+
+def _qd_solver(M, n):
+    """b -> M^{-1} b for a batch of quasidefinite M = [[H, C'], [C, -F]],
+    H (n, n) and F positive definite: the unpivoted LDL' that ldl_nopiv
+    computes, in two blocks, each a Cholesky factor (ops.ipm_chol's
+    route): H = L1 L1', Y = L1^{-1} C' and S = F + Y'Y = L2 L2', so that
+    M = [[L1, 0], [Y', L2]] diag(I, -I) [[L1', Y], [0, L2']].  A handful
+    of launches where ldl_nopiv's column loop takes ~6 a column."""
+    L1 = chol_factor(M[:, :n, :n])[0]
+    Y = tri_lower_solve(L1, None, M[:, n:, :n].mT)
+    L2 = chol_factor(Y.mT @ Y - M[:, n:, n:])[0]
+
+    def solve(b):
+        w = tri_lower_solve(L1, None, b[:, :n])
+        u2 = chol_solve(L2, None, _tmv(Y, w) - b[:, n:])
+        u1 = tri_lower_t_solve(L1, None, w - _mv(Y, u2))
+        return torch.cat([u1, u2], dim=-1)
+
+    return solve
 
 
 def _kkt_ldl(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
@@ -595,7 +704,11 @@ def _kkt_ldl(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
     M[:, :n, n + p:] = Gs.mT
     _set_diag(M, n, n + p, -eps)
     _set_diag(M, n + p, n + p + N, -(1.0 + eps))
-    L, dvec = ldl_nopiv(M)
+    # the same factor: on the card the quasidefinite split, on the CPU the
+    # JAX package's recurrence, whose column loop the card's host pays for
+    # (ldl_nopiv at order 2040 on an H100: ~140 ms a factor, host-bound)
+    msolve = (_qd_solver(M, n) if M.device.type == "cuda"
+              else _ldl_solver(M))
 
     def mul(u):
         ux, uy, uz = u[:, :n], u[:, n:n + p], u[:, n + p:]
@@ -604,7 +717,7 @@ def _kkt_ldl(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
 
     def solve(bx, by, bz):
         bzs = cones.scale(edims, W, bz, trans=True, inverse=True)
-        u = _ldl_refined(L, dvec, torch.cat([bx, by, bzs], dim=-1), mul)
+        u = _refined(msolve, torch.cat([bx, by, bzs], dim=-1), mul)
         uz = cones.scale(edims, W, u[:, n + p:], inverse=True)
         return u[:, :n], u[:, n:n + p], uz
 
@@ -624,7 +737,7 @@ def _kkt_ldl2(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
     M[:, n:, :n] = A
     M[:, :n, n:] = A.mT
     _set_diag(M, n, n + p, -eps)
-    L, dvec = ldl_nopiv(M)
+    msolve = _ldl_solver(M)
 
     def mul(u):
         ux, uy = u[:, :n], u[:, n:]
@@ -632,8 +745,8 @@ def _kkt_ldl2(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
 
     def solve(bx, by, bz):
         bzs = cones.scale(edims, W, bz, trans=True, inverse=True)
-        u = _ldl_refined(L, dvec, torch.cat([bx + _tmv(Gs, bzs), by],
-                                            dim=-1), mul)
+        u = _refined(msolve, torch.cat([bx + _tmv(Gs, bzs), by], dim=-1),
+                     mul)
         ux = u[:, :n]
         uz = cones.scale(edims, W, _mv(Gs, ux) - bzs, inverse=True)
         return ux, u[:, n:], uz

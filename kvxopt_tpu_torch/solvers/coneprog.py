@@ -662,13 +662,14 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
         return rx, ry, rz, Metrics(pcost, dcost, gap,
                                    _relgap(gap, pcost, dcost), pres, dres)
 
-    def do_step(x, y, s, z, rx, ry, rz, m):
+    def do_step(x, y, s, z, rx, ry, rz, m, lanes):
         trace.count("ipm.steps")
         with trace.span("cone"):
             W, lmbda = cones.compute_scaling(dims, s, z)
             lmbdasq = cones.ssqr(dims, lmbda)
         with trace.span("kkt.factor"):
-            solve = factor(W)
+            solve = factor(W) if lanes is None else factor(W, fallback=lanes)
+        weak = getattr(solve, "weak", None)
         mu = m.gap / deg
 
         # Mehrotra predictor, then corrector
@@ -702,9 +703,17 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
         sn = s + step[:, None] * ds
         zn = z + step[:, None] * dz
         bad = ~torch.isfinite(xsp.dot(xn, xn) + dot(sn, sn) + dot(zn, zn))
-        st = torch.where(bad, SINGULAR, RUNNING).to(torch.int32)
         return (xsp.where(bad, x, xn), ysp.where(bad, y, yn),
-                _where(bad, s, sn), _where(bad, z, zn), st)
+                _where(bad, s, sn), _where(bad, z, zn), bad, weak)
+
+    # A lane whose step is not finite keeps its iterate.  Where the KKT
+    # strategy can serve lanes on a fallback (kkt.make_kkt_solver's
+    # lane_fallback: chol2 on ldl), the lane is flagged and steps again
+    # from it on the fallback until it ends; it ends SINGULAR where a step
+    # on the fallback is not finite too.  Elsewhere it ends SINGULAR.  A
+    # lane whose factor the strategy reads as about to break down (the
+    # solve's `weak`) keeps its step and is flagged too.
+    can_fall_back = getattr(factor, "lane_fallback", False)
 
     with trace.span("ipm"):
         with trace.span("sync"):
@@ -717,6 +726,10 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
         m = metrics_of(x, y, s, z)[3]
         it = torch.zeros((B,), dtype=torch.int32, device=dev)
         status = torch.full((B,), RUNNING, dtype=torch.int32, device=dev)
+        if can_fall_back:
+            flagged = torch.zeros((B,), dtype=torch.bool, device=dev)
+            # the record says the call could fall back, on 0 lanes so far
+            trace.count("kkt.fallback_lanes", 0)
         if o.show_progress:
             print("     pcost       dcost       gap    pres   dres")
         while _any(status == RUNNING):
@@ -738,13 +751,23 @@ def _coneqp_core(q, h, b, dims: ConeDims, o: Options, factor, gmv, amv,
                 torch.where(it >= o.maxiters, UNKNOWN, RUNNING)).to(
                     torch.int32)
             stepping = live & (new_status == RUNNING)
-            if _any(stepping):
-                xn, yn, sn, zn, st = do_step(x, y, s, z, rx, ry, rz, mm)
+            go, lanes = (_any_flagged(stepping, flagged) if can_fall_back
+                         else (_any(stepping), None))
+            if go:
+                xn, yn, sn, zn, bad, weak = do_step(x, y, s, z, rx, ry, rz,
+                                                    mm, lanes)
                 x = xsp.where(stepping, xn, x)
                 y = ysp.where(stepping, yn, y)
                 s = _where(stepping, sn, s)
                 z = _where(stepping, zn, z)
-                new_status = torch.where(stepping, st, new_status)
+                if can_fall_back:
+                    # no `stepping &`: a lane that does not step now never
+                    # steps again, and _any_flagged names stepping lanes
+                    bad, flagged = bad & flagged, flagged | bad
+                    if weak is not None:
+                        flagged = flagged | weak
+                new_status = torch.where(stepping & bad, SINGULAR,
+                                         new_status)
             status = torch.where(live, new_status, status)
             it = torch.where(live, it + 1, it)
             m = Metrics(*(torch.where(live, a, b_) for a, b_ in zip(mm, m)))
@@ -756,6 +779,15 @@ def _any(mask):
     with trace.span("sync"):
         return bool(mask.any())
 
+
+def _any_flagged(stepping, flagged):
+    """(bool(stepping.any()), the indices of the lanes that step and are
+    flagged, a host array, or None where there are none), read in the one
+    wait for the device that _any(stepping) makes."""
+    with trace.span("sync"):
+        v = torch.stack([stepping, flagged]).cpu().numpy()
+    lanes = np.flatnonzero(v[0] & v[1])
+    return bool(v[0].any()), (lanes if lanes.size else None)
 
 
 def coneqp(P, q, G=None, h=None, dims=None, A=None, b=None, initvals=None,

@@ -12,11 +12,16 @@ solve opens these spans:
         cone                            scaling, Newton right-hand sides,
                                         ds recovery, step lengths
         kkt.factor                      factor(W)
+          kkt.fallback                  chol2's lanes on the augmented
+                                        LDL' (kkt._on_ldl): their factor
         kkt.solve                       each solve(bx, by, bz)
+          kkt.fallback                  and each of their solves
         sync                            each host wait on the device
 
 and counts, per call, `ipm.steps` (interior-point steps taken),
-`h2d_bytes` (bytes the front ends copy from host memory to a CUDA
+`kkt.fallback_lanes` (the lanes chol2 handed to the augmented LDL',
+summed over the call's factorizations; 0 where chol2 could and did
+not), `h2d_bytes` (bytes the front ends copy from host memory to a CUDA
 device) and, in parallel.batch's QP solve, `operand_bytes` (the bytes
 of the distinct storages its P, q, G, h, A and b occupy, a storage that
 lanes share counted once).  On exit from the root one `Call` record
